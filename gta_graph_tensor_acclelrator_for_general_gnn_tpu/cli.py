@@ -1,22 +1,22 @@
 """CLI driver — the reference's ``start.py`` (vTCAD/code/start.py:13-63)
 re-imagined for real execution.
 
-Reference flags and their TPU equivalents:
+Reference flags and their equivalents here:
   --dataset / --network            same
   --isReorder                      --reorder (algebraically reordered graph)
-  --isSinput                       auto (ops/sinput.py sparse-input MM when
-                                   feature density < 0.5; train --schedule)
-  --isPingpang                     (subsumed: Pallas pipelines double-buffer)
+  --isSinput                       (dropped: the first layer's [N, F] @ W is
+                                   one dense tensor-core matmul)
+  --isPingpang                     (subsumed: the kernels pipeline their
+                                   own loads)
   --isFlexibleBuffer               --hw-config region caps (hwconfig.py)
 plus new commands the reference cannot do:
-  run       forward latency of the model on the dataset (per layer + total)
+  run       forward latency of the model on the dataset
   train     full training run, reports accuracy and epoch time
   tune      schedule autotune (enumerative or --ga), prints the best schedule
-  bench     edges/s for the SpMM/SDDMM hot kernels
+  bench     CSR kernel vs XLA time for the SpMM and GAT aggregations
 
 The reference prints simulated latency-seconds and MB moved (start.py:57-58);
-``run`` prints *measured* latency and the analytic HBM traffic of the chosen
-schedule.
+``run`` prints *measured* latency of the chosen schedule.
 """
 from __future__ import annotations
 
@@ -27,8 +27,8 @@ import sys
 
 def main(argv=None):
     p = argparse.ArgumentParser(
-        prog="gta-tpu",
-        description="TPU-native graph tensor accelerator for general GNNs")
+        prog="gta",
+        description="graph tensor accelerator for general GNNs")
     p.add_argument("command", choices=["run", "train", "tune", "bench"])
     p.add_argument("--dataset", default="cora")
     p.add_argument("--network", default="GAT")
@@ -39,10 +39,9 @@ def main(argv=None):
                    help="use the algebraically reordered (trans) op graph")
     p.add_argument("--node-reorder", default="none",
                    choices=["none", "degree", "cluster"],
-                   help="relabel nodes to densify adjacency blocks before "
-                        "execution (cluster = label-propagation communities "
-                        "— the label-free preprocessing real graphs need "
-                        "for the hybrid density-split path)")
+                   help="relabel nodes before execution (cluster = "
+                        "label-propagation communities — the label-free "
+                        "locality preprocessing real graphs need)")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--bf16", action="store_true", default=True)
@@ -55,8 +54,8 @@ def main(argv=None):
                    help="run/train: use the compile-only min-modelled-"
                         "latency schedule pick (compiler/latency.py) when "
                         "no --schedule file is given; train additionally "
-                        "builds the transposed tilings so gradients run "
-                        "the kernel backwards")
+                        "builds the transposed CSR so gradients run the "
+                        "kernels backwards")
     p.add_argument("--schedule", default=None,
                    help="path to a tuned schedule JSON (results/best_*.json) "
                         "to execute with (run/train)")
@@ -64,54 +63,52 @@ def main(argv=None):
                    help="checkpoint dir: train saves final state here")
     p.add_argument("--memo", default=None, help="schedule memo CSV path")
     p.add_argument("--hw-config", default=None,
-                   help="hardware config JSON/YAML (VMEM budget, region "
+                   help="hardware config JSON/YAML (buffer budget, region "
                         "caps, tile palette — the reference's "
                         "hardware_info.yaml); also via $GTA_HW_CONFIG")
     p.add_argument("--derive-palette", action="store_true",
-                   help="tune over a palette derived from the VMEM-maximal "
-                        "tile for this graph's widest op (the reference's "
-                        "buffer-maximal tile-scale sweep)")
+                   help="tune over a palette derived from the buffer-"
+                        "maximal tile for this graph's widest op (the "
+                        "reference's buffer-maximal tile-scale sweep)")
     p.add_argument("--batch", type=int, default=1,
                    help="bench: compose this many independent copies of "
                         "the dataset graph block-diagonally (the serving "
                         "shape) and report batched edges/s")
-    p.add_argument("--tile-classes", default=None,
-                   help="bench: per-run tile capacity classes for the "
-                        "sparse kernels — comma list (e.g. 64,128,512) or "
-                        "'auto' for the measured-good default; one class "
-                        "per heterogeneous run size (graph.MultiTiledGraph)")
-    p.add_argument("--sparse-block", type=int, default=None,
-                   help="bench: row/col block size for the edge-tile "
-                        "kernels (default 256)")
-    p.add_argument("--iters", type=int, default=50)
-    p.add_argument("--target-s", type=float, default=0.25,
-                   help="self-calibrate each device timing window to ~this "
-                        "many seconds (quotable absolutes at every graph "
-                        "scale; 0 = fixed --iters span, the short-loop "
-                        "regime that mis-measures small graphs up to 4x)")
+    p.add_argument("--iters", type=int, default=20,
+                   help="timed calls per measurement (median reported)")
+    p.add_argument("--communities", type=int, default=0,
+                   help="draw the synthetic graph with this many planted "
+                        "communities (data.datasets.community_dataset); "
+                        "the full-batch Reddit-scale graph is --dataset "
+                        "reddit --communities 1000 --seed 1")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", action="store_true", help="machine-readable output")
     p.add_argument("--multihost", action="store_true",
                    help="initialize jax.distributed and train full-batch "
-                        "over the (hosts x local chips) mesh — run one "
-                        "process per host (parallel/multihost.py)")
+                        "over the (hosts x local devices) mesh — run one "
+                        "process per host (parallel/multihost.py); needs "
+                        "--coordinator, --nprocs and --procid")
     p.add_argument("--coordinator", default=None,
-                   help="multihost coordinator address host:port "
-                        "(auto-detected on Cloud TPU pods)")
+                   help="multihost coordinator address host:port")
     p.add_argument("--nprocs", type=int, default=None,
-                   help="multihost process count (auto on TPU pods)")
+                   help="multihost process count")
     p.add_argument("--procid", type=int, default=None,
-                   help="this process's id (auto on TPU pods)")
+                   help="this process's id")
     args = p.parse_args(argv)
 
     if args.hw_config:
         import os as _os
         _os.environ["GTA_HW_CONFIG"] = args.hw_config
 
+    from .utils.cache import enable_compile_cache
+    enable_compile_cache()
+
     import jax
     import jax.numpy as jnp
 
     if args.multihost:
+        if None in (args.coordinator, args.nprocs, args.procid):
+            p.error("--multihost needs --coordinator, --nprocs and --procid")
         # before any device use: join (or start) the jax.distributed pod
         from .parallel.multihost import init_multihost
         pid, pcount = init_multihost(args.coordinator, args.nprocs,
@@ -121,11 +118,14 @@ def main(argv=None):
               f"{jax.device_count()} global devices", flush=True)
 
     from . import build_op_graph, load_dataset
-    from .compiler.lower import init_params, lower
-    from .utils.benchmark import time_layer_device
+    from .compiler.lower import init_params
+    from .data.datasets import community_dataset
+    from .utils.benchmark import time_apply
 
     dtype = jnp.bfloat16 if args.bf16 else None
-    ds = load_dataset(args.dataset, seed=args.seed)
+    ds = (community_dataset(args.dataset, seed=args.seed,
+                            communities=args.communities)
+          if args.communities else load_dataset(args.dataset, seed=args.seed))
     if args.node_reorder != "none":
         import dataclasses as _dc
 
@@ -137,7 +137,10 @@ def main(argv=None):
                          test_mask=ds.test_mask[perm], _device_graph=None)
     out = {"dataset": args.dataset, "network": args.network,
            "synthetic_data": ds.synthetic,
-           "node_reorder": args.node_reorder}
+           "node_reorder": args.node_reorder,
+           "graph": dict(n_node=ds.host_graph.n_node,
+                         n_edge=ds.host_graph.n_edge,
+                         e_pad=ds.host_graph.e_pad)}
 
     def _parse_sched(spec):
         from .compiler import schedule as S
@@ -173,24 +176,17 @@ def main(argv=None):
         model_ = None
         if sched is None and args.compiled:
             # compile-only pick per layer; training flows through the
-            # kernels' custom VJPs (hybrid kernel backward etc.).  The
-            # transposed tilings for the kernel backward ride on
-            # build_transpose below.  The picked-for model (incl. the
+            # kernels' custom VJPs.  The transposed CSR for the kernel
+            # backward rides on build_transpose below.  The picked-for model (incl. the
             # --reorder trans variant) is passed through so block ids
             # match the trained layers.
-            from .compiler.latency import min_latency_schedule
+            from .compiler.latency import pick_model_schedules
             from .models.zoo import build_model
             model_ = build_model(args.network, ds.x.shape[1], ds.n_class,
                                  hidden=args.hidden, n_layers=args.layers,
                                  heads=args.heads, reorder=args.reorder)
-            sched = []
-            w = ds.x.shape[1]
-            for gph in model_.layers:
-                sc, _ = min_latency_schedule(gph, ds.host_graph,
-                                             feat_width=w)
-                sched.append(sc)
-                w = max(op.out_width for op in gph.ops
-                        if op.op_id in gph.outputs)
+            sched, _ = pick_model_schedules(model_.layers, ds.host_graph,
+                                            ds.x.shape[1], training=True)
             out["schedule"] = [s.key() for s in sched]
         state, res = train_node_classifier(
             ds, args.network, hidden=args.hidden, n_layers=args.layers,
@@ -219,26 +215,16 @@ def main(argv=None):
             # compile-only pick: argmin MODELLED latency incl. the all-XLA
             # candidate (compiler/latency.py — the reference's
             # compiler+simulator role, no measurement in the loop)
-            from .compiler.latency import min_latency_schedule
-            sched = []
-            w = ds.x.shape[1]
-            modelled_ns = 0.0
-            for graph in model.layers:
-                sc, t_ns = min_latency_schedule(graph, ds.host_graph,
-                                                feat_width=w)
-                sched.append(sc)
-                modelled_ns += t_ns
-                w = max(op.out_width for op in graph.ops
-                        if op.op_id in graph.outputs)
+            from .compiler.latency import pick_model_schedules
+            sched, modelled_ns = pick_model_schedules(
+                model.layers, ds.host_graph, ds.x.shape[1])
             out["modelled_us"] = modelled_ns / 1e3
         fwd = model.make_apply(
             dtype, schedules=sched,
             host_graph=ds.host_graph if sched else None)
         if sched:
             out["schedule"] = [s.key() for s in sched]
-        lat = time_layer_device(fwd, params, ds.graph, x,
-                                k_small=8, k_big=8 + args.iters,
-                                target_s=args.target_s or None)
+        lat = time_apply(fwd, params, ds.graph, x, iters=args.iters)
         out.update(dict(latency_us=lat * 1e6,
                         edges_per_s=ds.host_graph.n_edge * args.layers / lat))
 
@@ -312,117 +298,42 @@ def main(argv=None):
                 print(res.report())
 
     elif args.command == "bench":
-        from .graph import tile_graph, tile_graph_classes
-        from .ops import sddmm as sddmm_mod
+        from .ops import gat as gat_mod
         from .ops import spmm as spmm_mod
+        from .graph import csr_graph
+        from .utils.benchmark import time_fn
         bhg = ds.host_graph
         if args.batch > 1:
-            # block-diagonal serving composition: ONE kernel sweep serves
+            # block-diagonal serving composition: one kernel sweep serves
             # all B copies; per-graph edge weights (the dataset's own
             # symmetric norm) are preserved by batch_graphs
             from .data.batching import batch_graphs
             bhg, _ = batch_graphs([bhg] * args.batch)
             out["batch"] = args.batch
-        if args.tile_classes:
-            sb = args.sparse_block or 256
-            classes = ((128, 256, 512, 1024)
-                       if args.tile_classes == "auto" else
-                       tuple(int(c) for c in args.tile_classes.split(",")))
-            tg = tile_graph_classes(bhg, block_rows=sb, block_cols=sb,
-                                    tile_classes=classes)
-            out["tile_classes"] = list(classes)
-            out["sparse_block"] = sb
-        elif args.sparse_block:
-            sb = args.sparse_block
-            tg = tile_graph(bhg, block_rows=sb, block_cols=sb)
-            out["sparse_block"] = sb
-        else:
-            # default: geometry + capacity from the measured v5e cost model
-            # (graph.tile_time_model_ns); Cora B=64 serving measured
-            # 11.75 -> 4.16 ms vs the old fixed 256^2/512
-            from .graph import (best_tile_capacity, run_nnz_hist,
-                                tile_time_model_ns)
-            best = None
-            for tr, tc in ((256, 256), (512, 512), (1024, 512),
-                           (1024, 1024)):
-                nnz = run_nnz_hist(bhg, tr, tc)
-                if not len(nnz):
-                    best = (0.0, 256, 256, 512)
-                    break
-                et = best_tile_capacity(nnz, tr, tc,
-                                        feat_width=args.hidden)
-                t = tile_time_model_ns(nnz, et, tr, tc,
-                                       feat_width=args.hidden)
-                if best is None or t < best[0]:
-                    best = (t, tr, tc, et)
-            _, tr, tc, et = best
-            tg = tile_graph(bhg, block_rows=tr, block_cols=tc,
-                            tile_edges=et)
-            out["sparse_block"] = [tr, tc]
-            out["tile_edges"] = et
-        # CPU backends only run Pallas in interpret mode (CI smoke path)
-        interp = jax.default_backend() == "cpu"
-        x = jax.device_put(jax.random.normal(
-            jax.random.key(1), (bhg.n_node, args.hidden),
-            jnp.bfloat16 if args.bf16 else jnp.float32))
-        lat = time_layer_device(
-            lambda p, t, v: spmm_mod.spmm(t, v, interpret=interp),
-            None, tg, x, k_small=8, k_big=8 + args.iters,
-            target_s=args.target_s or None)
-        out.update(dict(spmm_latency_us=lat * 1e6,
-                        spmm_edges_per_s=bhg.n_edge / lat))
-        # roofline %: achieved vs v5e peaks for the one-hot kernel
-        # (VERDICT r2 next-9 — makes the tail gap a first-class number).
-        # MXU: kernel FLOPs incl. padded slots; HBM: the ideal traffic
-        # (x panel per run + edge streams + output), i.e. % of the
-        # bandwidth-bound speed-of-light for this op
-        import numpy as np
-        from .hwconfig import load_hw_config
-        cfg = load_hw_config()
-        xb = x.dtype.itemsize
-        slots = getattr(tg, "total_slots", None) or tg.n_tiles * tg.tile_edges
-        if hasattr(tg, "parts"):
-            kflops = sum(2 * p.n_tiles * p.tile_edges
-                         * (p.block_rows + p.block_cols) * args.hidden
-                         for p in tg.parts)
-            runs = sum(len(np.unique(np.asarray(p.tile_rb)
-                                     * p.n_col_blocks
-                                     + np.asarray(p.tile_cb)))
-                       for p in tg.parts)
-            bc = tg.parts[0].block_cols
-        else:
-            kflops = (2 * slots * (tg.block_rows + tg.block_cols)
-                      * args.hidden)
-            bc = tg.block_cols
-            if hasattr(tg, "chunk_cb"):
-                runs = tg.n_chunks
-            else:
-                runs = len(np.unique(np.asarray(tg.tile_rb)
-                                     * tg.n_col_blocks
-                                     + np.asarray(tg.tile_cb)))
-        ideal_bytes = (runs * bc * args.hidden * xb + slots * 16
-                       + bhg.n_node * args.hidden * 4)
-        mxu_peak = 197e12 if args.bf16 else 49e12
-        out.update(dict(
-            spmm_mxu_pct=round(100 * kflops / lat / mxu_peak, 1),
-            spmm_hbm_pct=round(
-                100 * ideal_bytes / lat / (cfg.hbm_gbps * 1e9), 1)))
-
-        # SDDMM (per-edge pair dots — the attention-logit hot op; the
-        # north-star metric is SpMM+SDDMM edges/s)
-        def sddmm_fn(p, t, v):
-            e = sddmm_mod.sddmm(t, v, v, heads=1, interpret=interp)
-            # scalar keep-alive folded back at negligible cost
-            # (multi-class tilings return a per-class tuple)
-            tot = (sum(part.sum() for part in e) if isinstance(e, tuple)
-                   else e.sum())
-            return v + tot.astype(v.dtype) * 1e-9
-
-        lat2 = time_layer_device(sddmm_fn, None, tg, x,
-                                 k_small=8, k_big=8 + args.iters,
-                                 target_s=args.target_s or None)
-        out.update(dict(sddmm_latency_us=lat2 * 1e6,
-                        sddmm_edges_per_s=bhg.n_edge / lat2))
+        cg = csr_graph(bhg)
+        cg_u = csr_graph(bhg, unit_weight=True)
+        heads = args.heads
+        key = jax.random.key(args.seed)
+        kx, ks, kd = jax.random.split(key, 3)
+        x = jax.random.normal(kx, (bhg.n_node, args.hidden),
+                              jnp.bfloat16 if args.bf16 else jnp.float32)
+        a_s = jax.random.normal(ks, (bhg.n_node, heads), jnp.float32)
+        a_d = jax.random.normal(kd, (bhg.n_node, heads), jnp.float32)
+        fns = {
+            "spmm_csr": (jax.jit(spmm_mod.spmm_raw), (cg, x)),
+            "spmm_xla": (jax.jit(spmm_mod.spmm_reference), (cg, x)),
+            "gat_csr": (jax.jit(gat_mod.gat_attention),
+                        (cg_u, x, a_s, a_d)),
+            "gat_xla": (jax.jit(gat_mod.gat_reference),
+                        (cg_u, x, a_s, a_d)),
+        }
+        for name, (f, fargs) in fns.items():
+            med, _ = time_fn(f, *fargs, iters=args.iters)
+            out[f"{name}_us"] = med * 1e6
+            out[f"{name}_edges_per_s"] = bhg.n_edge / med
+        dev = jax.devices()[0]
+        out["device"] = dict(platform=dev.platform, kind=dev.device_kind,
+                             count=len(jax.devices()))
 
     print(json.dumps(out))
     return 0

@@ -1,19 +1,20 @@
-"""Schedule lowering: fused blocks -> Pallas kernels, the rest -> XLA.
+"""Schedule lowering: fused blocks -> CSR kernels, the rest -> XLA.
 
 The reference interpreter turns fused blocks into simulated fused
 instructions according to the ``hardware_info.yaml`` pattern table
 (vTCAD/code/interpreter.py:540-719: scatter+applyedge, applyedge+gather,
 x3 chains...).  Here a fused block that matches a kernel pattern executes as
-one Pallas call; unmatched blocks run op-by-op through the XLA primitives
-(and XLA fuses the elementwise chains on its own).
+one kernel; unmatched blocks run op-by-op through the XLA primitives (and
+XLA fuses the elementwise chains on its own).
 
 Patterns implemented:
-  * SPMM  — scatter(C) [-> apply_edge MUL edge_weight] -> gather(ADD):
-    the neighbourhood aggregation of GCN/SGC/SAGE/GIN/DGN, one
-    block-sparse Pallas SpMM (ops/spmm.py).
+  * SPMM  — scatter(C) [-> apply_edge MUL edge_weight] -> gather(ADD|MEAN):
+    the neighbourhood aggregation of GCN/SGC/SAGE/GIN/DGN, one CSR SpMM
+    (ops/spmm.py).
   * GAT   — the full edge-softmax attention block (scatters, logits,
-    stable softmax, weighted aggregation) as one online-softmax Pallas
-    kernel (ops/gat.py), when the block covers the canonical GAT op chain.
+    stable softmax, weighted aggregation) as one CSR attention kernel
+    (ops/gat.py), when the block covers the canonical GAT op chain.
+Every other block — and every block on the ``xla`` path — lowers to XLA.
 """
 from __future__ import annotations
 
@@ -24,19 +25,17 @@ import jax
 import jax.numpy as jnp
 
 from .. import ir
-from ..graph import GraphTensor, HostGraph, TiledGraph, tile_graph
-from ..ops import primitives as P
+from ..graph import GraphTensor, HostGraph, csr_graph
+from ..ops import gat as gat_mod
 from ..ops import spmm as spmm_mod
 from .lower import _eval_op
 from . import schedule as S
 from .schedule import Schedule, TileConfig
 
 # bump when kernel implementations change: memoised tuner latencies are
-# keyed on (KERNEL_VERSION, schedule) so stale measurements never resurface
-KERNEL_VERSION = 9  # v9 (r5): gat_hybrid builds 'cr' dense blocks at the
-                    # transposed threshold (+ kernel backward).  The bump
-                    # orphans ALL v8 memo entries (keys embed the version;
-                    # no selective retention) — they are re-measured.
+# keyed on (KERNEL_VERSION, device kind, schedule) so stale measurements
+# never resurface
+KERNEL_VERSION = 10  # v10: CSR kernels (Triton route) replace the tiled family
 
 
 @dataclasses.dataclass
@@ -46,47 +45,6 @@ class _SpmmPlan:
     weighted: bool          # True if the apply_edge MUL edge_weight is inside
     mean: bool = False      # gather MEAN: segment-sum kernel + 1/in-degree
                             # post-scale (SAGE-mean aggregation)
-
-
-@dataclasses.dataclass
-class _SddmmPlan:
-    src_op: int             # node-aligned producer scattered by sender (C)
-    dst_op: int             # node-aligned producer scattered by receiver (R)
-    out_op: int             # the apply_edge op id (block output, edge domain)
-    compute: str            # ADD or MUL
-
-
-def match_sddmm(graph: ir.OpGraph, block: Sequence[int]) -> Optional[_SddmmPlan]:
-    """Match the attention-logit pattern scatter(C) + scatter(R) +
-    apply_edge(ADD|MUL) — the sampled-dense-dense product behind per-edge
-    logits (reference GAT ops 3/5/6, vTCAD/GraphOP/genGraphOP.py:50-60).
-
-    Lowered by ops/sddmm.py: elementwise MUL is an SDDMM with heads=F
-    (per-head width 1); elementwise ADD is an SDDMM over the augmented
-    operands [a ‖ 1]·[1 ‖ b] (per-head width 2) — both run the one-hot MXU
-    gathers instead of materialised [E, F] takes."""
-    if len(block) != 3:
-        return None
-    ops = [graph.by_id[o] for o in block]
-    kinds = sorted(op.kind for op in ops)
-    if kinds != sorted([ir.SCATTER, ir.SCATTER, ir.APPLY_EDGE]):
-        return None
-    ae = next(o for o in ops if o.kind == ir.APPLY_EDGE)
-    scs = [o for o in ops if o.kind == ir.SCATTER]
-    if ae.compute not in (ir.ADD, ir.MUL):
-        return None
-    if sorted(ae.inputs) != sorted([s.op_id for s in scs]):
-        return None
-    if {scs[0].order, scs[1].order} != {"R", "C"}:
-        return None
-    sc_c = scs[0] if scs[0].order == "C" else scs[1]
-    sc_r = scs[0] if scs[0].order == "R" else scs[1]
-    if sc_c.compute != ir.NONE or sc_r.compute != ir.NONE:
-        return None
-    if len(sc_c.inputs) != 1 or len(sc_r.inputs) != 1:
-        return None
-    return _SddmmPlan(src_op=sc_c.inputs[0], dst_op=sc_r.inputs[0],
-                      out_op=ae.op_id, compute=ae.compute)
 
 
 def match_spmm(graph: ir.OpGraph, block: Sequence[int]) -> Optional[_SpmmPlan]:
@@ -125,51 +83,26 @@ def match_spmm(graph: ir.OpGraph, block: Sequence[int]) -> Optional[_SpmmPlan]:
 
 def classify_block(graph: ir.OpGraph, block, tc: TileConfig):
     """Which execution path a (block, TileConfig) pair lowers to:
-    ``(kind, plan)`` with kind in {spmm, spmm_hybrid, spmm_stream, gat,
-    gat_hybrid, gat_stream, gat_layer, sddmm, xla}.  Single source of truth
-    shared by :func:`lower_schedule` and the latency model
-    (compiler/latency.py) — the model must price what actually runs."""
-    from ..ops import gat as gat_mod
-    spmm_plan = match_spmm(graph, block) if tc.kernel else None
-    layer_plan = (gat_mod.match_gat_layer(graph, block)
-                  if tc.kernel and spmm_plan is None else None)
+    ``(kind, plan)`` with kind in {spmm, spmm_stream, spmm_densefull, gat,
+    gat_stream, xla}.  Single source of truth shared by
+    :func:`lower_schedule` and the latency model (compiler/latency.py) —
+    the model must price what actually runs."""
+    if not tc.kernel:
+        return "xla", None
+    spmm_plan = match_spmm(graph, block)
     gat_plan = (gat_mod.match_gat_block(graph, block)
-                if tc.kernel and spmm_plan is None and layer_plan is None
-                else None)
-    sddmm_plan = (match_sddmm(graph, block)
-                  if tc.kernel and spmm_plan is None
-                  and layer_plan is None and gat_plan is None else None)
-    pair_plan = None
-    if (tc.kernel and spmm_plan is None and layer_plan is None
-            and gat_plan is None and sddmm_plan is None):
-        from ..ops.pairagg import match_pair_agg
-        pair_plan = match_pair_agg(graph, block)
-    if tc.path == S.PATH_GROUPED:
-        # the stripe-group chunked kernel exists for plain SpMM only
-        return ("spmm_grouped", spmm_plan) if spmm_plan is not None \
-            else ("xla", None)
+                if spmm_plan is None else None)
     if tc.path == S.PATH_DENSEFULL:
-        # full dense adjacency matmul — plain SpMM only (the medium-N
-        # regime); attention keeps the hybrid/block dense kernels
+        # full dense adjacency matmul — plain SpMM only
         return ("spmm_densefull", spmm_plan) if spmm_plan is not None \
             else ("xla", None)
     if tc.path == S.PATH_STREAM and (spmm_plan or gat_plan):
         return ("spmm_stream" if spmm_plan else "gat_stream",
                 spmm_plan or gat_plan)
-    if tc.path == S.PATH_HYBRID and spmm_plan is not None:
-        return "spmm_hybrid", spmm_plan
-    if tc.path == S.PATH_HYBRID and gat_plan is not None:
-        return "gat_hybrid", gat_plan
-    if spmm_plan is not None:
+    if tc.path == S.PATH_CSR and spmm_plan is not None:
         return "spmm", spmm_plan
-    if layer_plan is not None and tc.path == S.PATH_ONEHOT:
-        return "gat_layer", layer_plan
-    if gat_plan is not None:
+    if tc.path == S.PATH_CSR and gat_plan is not None:
         return "gat", gat_plan
-    if sddmm_plan is not None:
-        return "sddmm", sddmm_plan
-    if pair_plan is not None and tc.path == S.PATH_ONEHOT:
-        return "pair_agg", pair_plan
     return "xla", None
 
 
@@ -178,157 +111,55 @@ def lower_schedule(
     schedule: Schedule,
     host_graph: HostGraph,
     compute_dtype=None,
-    interpret: Optional[bool] = None,
-    x_host=None,
     build_transpose: bool = False,
-    tile_cache: Optional[Dict] = None,
+    graph_cache: Optional[Dict] = None,
 ) -> Callable[[Dict[str, jax.Array], GraphTensor, jax.Array], jax.Array]:
     """Lower ``graph`` under ``schedule`` to ``apply(params, g, x)``.
 
-    Host-side: builds one TiledGraph per distinct (TileConfig, weighted)
-    used by a matched block (closured into the returned function — static
-    data, donated to the device once).
+    Host-side: builds the CSR graphs the matched blocks need (one per
+    weighting; static data, put on the device once).
 
-    ``x_host``: the dataset's feature matrix (numpy).  When given and its
-    density is below 0.5, MM ops reading X lower to the sparse-input path
-    (ops/sinput.py — the reference's isSinput auto-enable,
-    vTCAD/code/simulator.py:460-461).  The nonzeros are baked, so only pass
-    x_host when apply will always be called with these features (training /
-    fixed-feature serving).
+    ``build_transpose``: also build the CSR of the TRANSPOSED graph so
+    x-gradients run the same kernels (dx = Aᵀ ȳ).  Doubles the graph
+    preprocessing and index memory; enable for training at scales where
+    the XLA [E, F] backward would not fit.
 
-    ``build_transpose``: also tile the TRANSPOSED graph for every SpMM
-    block so x-grads run the same kernels (dx = Aᵀ ȳ — the tiled
-    backward).  Doubles graph preprocessing + device tile memory; enable
-    for training at scales where the XLA [E, F] recompute would not fit.
+    ``graph_cache``: share the CSR graphs across the layers of one model.
     """
-    from ..ops import gat as gat_mod
-    from ..ops import dense as dense_mod
-    from ..graph import hybrid_graph
-
-    if interpret is None:
-        # CPU backends have no Mosaic: interpret the kernels (CI smoke /
-        # virtual-mesh runs); real backends compile
-        interpret = jax.default_backend() == "cpu"
-
-    # tile_cache: share tilings across the layers of one model — every
-    # layer of a stack typically uses the same geometry over the same
-    # graph, and a full-Reddit grouped tiling costs ~5 min + 2.3 GB each
-    cache = tile_cache if tile_cache is not None else {}
-    tiled: Dict[tuple, TiledGraph] = cache.setdefault("tiled", {})
-    hybrids: Dict[tuple, object] = cache.setdefault("hybrids", {})
-    host_graph_t = perm_t = None
+    cache = graph_cache if graph_cache is not None else {}
+    hg_t = perm_t = None
     if build_transpose:
         if "transpose" not in cache:
             from ..graph import transpose_host_graph
-            hg_t, perm_np = transpose_host_graph(host_graph)
-            cache["transpose"] = (hg_t, jnp.asarray(perm_np))
-        host_graph_t, perm_t = cache["transpose"]
+            hg_t_, perm_np = transpose_host_graph(host_graph)
+            cache["transpose"] = (hg_t_, jnp.asarray(perm_np, jnp.int32))
+        hg_t, perm_t = cache["transpose"]
 
-    def get_tiled(tc: TileConfig, unit_weight: bool,
-                  hg: Optional[HostGraph] = None) -> TiledGraph:
-        hg = hg if hg is not None else host_graph
-        grouped = tc.path == S.PATH_GROUPED
-        key = (id(hg), tc.block_rows, tc.block_cols, tc.tile_edges,
-               unit_weight, grouped)
-        if key not in tiled:
-            if grouped:
-                from ..graph import tile_graph_grouped
-                tiled[key] = tile_graph_grouped(
-                    hg,
-                    block_rows=tc.block_rows,
-                    block_cols=tc.block_cols,
-                    tile_edges=tc.tile_edges,
-                    group=S.GROUPED_G,
-                    unit_weight=unit_weight,
-                )
-            else:
-                tiled[key] = tile_graph(
-                    hg,
-                    block_rows=tc.block_rows,
-                    block_cols=tc.block_cols,
-                    tile_edges=tc.tile_edges,
-                    unit_weight=unit_weight,
-                )
-        return tiled[key]
-
-    def get_hybrid(tc: TileConfig, unit_weight: bool, kind: str,
-                   heads: int = 1, head_dim: int = 128,
-                   hg: Optional[HostGraph] = None):
-        """The production density-split build (the recipe the Reddit bench
-        converged on, ops.dense.auto_hybrid): int8 count blocks on a
-        256-square dense grid (budget-capped threshold), edge tail at the
-        schedule's tile geometry.  Weighted SpMM keeps exactness via
-        separable scales when the weights are the symmetric norm, else
-        falls back to f32 weight blocks."""
-        import dataclasses as _dc
-
-        import numpy as _np
-
-        from ..graph import separable_weight_scales
-        from ..ops import dense as dense_mod
-
-        hg = hg if hg is not None else host_graph
-        key = (id(hg), tc.key(), unit_weight, kind, heads, head_dim)
-        if key not in hybrids:
-            scales = (None if (unit_weight or kind == "gat")
-                      else separable_weight_scales(hg))
-            int8 = unit_weight or kind == "gat" or scales is not None
-            vb = 1 if int8 else 4
-            # dense grid: the schedule's dense_block knob (square), else
-            # follow the tail geometry (small-graph tuner candidates)
-            drows = tc.dense_block or tc.block_rows
-            dcols = tc.dense_block or tc.block_cols
-            thr = dense_mod.hybrid_threshold(
-                hg, kind, heads=heads, head_dim=head_dim, value_bytes=vb,
-                dense_rows=drows, dense_cols=dcols)
-            hyb = hybrid_graph(
-                hg,
-                block_rows=drows,
-                block_cols=dcols,
-                sparse_block_rows=tc.block_rows,
-                sparse_block_cols=tc.block_cols,
-                tile_edges=tc.tile_edges,
-                min_nnz=thr,
-                unit_weight=unit_weight,
-                block_layout="cr" if kind == "gat" else "rc",
-                supergroup=0 if kind == "gat" else 16,
-                values_dtype=_np.int8 if int8 else _np.float32,
-            )
-            if scales is not None and hyb.dense is not None:
-                hyb = _dc.replace(hyb,
-                                  row_scale=jnp.asarray(scales[0]),
-                                  col_scale=jnp.asarray(scales[1]))
-            hybrids[key] = hyb
-        return hybrids[key]
-
-    # --- sparse-input first-layer MM (isSinput) --------------------------
-    fg = None
-    if x_host is not None:
-        from ..ops import sinput as sinput_mod
-        import numpy as _np
-        xh = _np.asarray(x_host)
-        if (sinput_mod.density(xh) < sinput_mod.SPARSITY_THRESHOLD
-                and any(op.compute == ir.MM and op.inputs == [ir.X_INPUT]
-                        for op in graph.ops)):
-            fg = sinput_mod.feature_graph(xh)
+    def get_csr(unit_weight: bool, transposed: bool = False):
+        key = ("csr", unit_weight, transposed)
+        if key not in cache:
+            cache[key] = csr_graph(hg_t if transposed else host_graph,
+                                   unit_weight=unit_weight)
+        return cache[key]
 
     # --- match blocks at build time (dispatch: classify_block) -----------
-    # plan tuples: (kind, block, tc, plan, graph_data, transposed_data)
+    # plan tuples: (kind, block, tc, plan, graph_data)
     plans: List[tuple] = []
     for block, tc in zip(schedule.blocks, schedule.tiles):
         kind, plan = classify_block(graph, block, tc)
-        if kind in ("spmm_stream", "gat_stream"):
-            plans.append((kind, block, tc, plan, None, None))
-        elif kind == "spmm_hybrid":
+        data = None
+        if kind == "spmm":
             uw = not plan.weighted
-            plans.append((kind, block, tc, plan,
-                          get_hybrid(tc, uw, "spmm"),
-                          get_hybrid(tc, uw, "spmm", hg=host_graph_t)
-                          if host_graph_t is not None else None))
+            data = (get_csr(uw),
+                    get_csr(uw, True) if build_transpose else None)
+        elif kind == "gat":
+            data = (get_csr(True), get_csr(True, True)
+                    if build_transpose else None,
+                    perm_t if build_transpose else None)
         elif kind == "spmm_densefull":
-            from ..graph import DENSEFULL_MAX_N, dense_adjacency
-            if host_graph.n_node > DENSEFULL_MAX_N:
-                plans.append(("xla", block, tc, None, None, None))
+            from ..graph import dense_adjacency, densefull_max_n
+            if host_graph.n_node > densefull_max_n():
+                kind, plan = "xla", None
             else:
                 key = ("densefull", plan.weighted)
                 if key not in cache:
@@ -336,49 +167,16 @@ def lower_schedule(
                         host_graph, weighted=plan.weighted))
                 # jnp.dot is natively differentiable (dx = A^T ybar as a
                 # second dense matmul) — no transposed build needed
-                plans.append((kind, block, tc, plan, cache[key], None))
-        elif kind == "gat_hybrid":
-            # 'cr' (pre-transposed) int8 blocks: the transposed dense
-            # attention kernel streams H*D sublanes instead of H*R
-            # (gat_dense_partial_t) AND is the layout the dense backward
-            # kernels require; the transposed twin enables the kernel VJP
-            hd = graph.width_of(plan.h_op)
-            plans.append((kind, block, tc, plan,
-                          get_hybrid(tc, True, "gat", plan.heads,
-                                     hd // plan.heads),
-                          get_hybrid(tc, True, "gat", plan.heads,
-                                     hd // plan.heads, hg=host_graph_t)
-                          if host_graph_t is not None else None))
-        elif kind in ("spmm", "spmm_grouped"):
-            uw = not plan.weighted
-            plans.append((kind, block, tc, plan, get_tiled(tc, uw),
-                          get_tiled(tc, uw, host_graph_t)
-                          if host_graph_t is not None else None))
-        elif kind == "gat":
-            plans.append((kind, block, tc, plan,
-                          get_tiled(tc, unit_weight=True),
-                          (get_tiled(tc, True, host_graph_t), perm_t)
-                          if host_graph_t is not None else None))
-        elif kind in ("gat_layer", "sddmm", "pair_agg"):
-            plans.append((kind, block, tc, plan,
-                          get_tiled(tc, unit_weight=True), None))
-        else:
-            plans.append(("xla", block, tc, None, None, None))
+                data = cache[key]
+        plans.append((kind, block, tc, plan, data))
 
     outputs = list(graph.outputs)
 
-    # the per-plan graph data (tile/dense arrays) can reach GBs on large or
-    # batched graphs: callers that jit the returned ``apply`` directly embed
-    # them as HLO constants (fine at small scale, fatal past ~100 MB — the
-    # remote compiler rejects the program).  ``apply.captures`` +
-    # ``apply.inner`` expose them so harnesses (time_layer_device) thread
-    # them through as jit ARGUMENTS instead.
     # gather MEAN blocks: the kernels compute the segment SUM; mean is a
     # 1/in-degree post-scale (matches primitives.gather_to_nodes MEAN, which
     # divides by the real incident-edge count)
     inv_deg = None
-    if any(p[0] in ("spmm", "spmm_grouped", "spmm_hybrid", "spmm_stream",
-                    "spmm_densefull")
+    if any(p[0] in ("spmm", "spmm_stream", "spmm_densefull")
            and getattr(p[3], "mean", False) for p in plans):
         import numpy as _np
         deg = _np.bincount(_np.asarray(host_graph.receivers),
@@ -387,12 +185,16 @@ def lower_schedule(
         inv_deg = jnp.asarray(
             1.0 / _np.maximum(deg, 1), jnp.float32)[:, None]
 
-    captures = jax.device_put((tuple(p[4] for p in plans),
-                               tuple(p[5] for p in plans), fg, inv_deg))
+    # the per-plan graph data (CSR / dense arrays) can reach GBs on large
+    # graphs: callers that jit the returned ``apply`` directly embed them as
+    # HLO constants (fine at small scale, fatal past ~100 MB).
+    # ``apply.captures`` + ``apply.inner`` expose them so harnesses
+    # (utils/benchmark.time_apply, models/train) pass them as jit ARGUMENTS.
+    captures = jax.device_put((tuple(p[4] for p in plans), inv_deg))
 
     def inner(params: Dict[str, jax.Array], g: GraphTensor, x: jax.Array,
               captures):
-        tgs, tgs_t, fg, inv_deg = captures
+        datas, inv_deg = captures
         vals: Dict[int, jax.Array] = {}
 
         def seg_out(plan, y: jax.Array) -> jax.Array:
@@ -408,94 +210,30 @@ def lower_schedule(
             return vals[i]
 
         def kin(v: jax.Array) -> jax.Array:
-            # kernel inputs follow the compute dtype (bf16 = single-pass MXU)
+            # kernel inputs follow the compute dtype (bf16 halves the bytes
+            # each gathered row moves)
             return v.astype(compute_dtype) if compute_dtype is not None else v
 
-        for (kind, block, tc, plan, _, _), tg, tg_t in zip(plans, tgs,
-                                                           tgs_t):
-            if kind in ("spmm", "spmm_grouped"):
-                y = spmm_mod.spmm(tg, kin(ref(plan.in_op)),
-                                  tg_t=tg_t, interpret=interpret)
-                vals[plan.out_op] = seg_out(plan, y)
-                # intermediates inside the block stay unmaterialised
-            elif kind == "spmm_hybrid":
-                vals[plan.out_op] = seg_out(plan, dense_mod.spmm_hybrid(
-                    tg, g, kin(ref(plan.in_op)), weighted=plan.weighted,
-                    interpret=interpret, hyb_t=tg_t))
+        for (kind, block, tc, plan, _), data in zip(plans, datas):
+            if kind == "spmm":
+                cg, cg_t = data
+                vals[plan.out_op] = seg_out(
+                    plan, spmm_mod.spmm(cg, kin(ref(plan.in_op)), cg_t))
             elif kind == "spmm_densefull":
-                # tg IS the dense [N_pad, N_pad] adjacency here
+                # data IS the dense [N_pad, N_pad] adjacency here
                 v = kin(ref(plan.in_op))
                 n = v.shape[0]
-                vp = jnp.zeros((tg.shape[1], v.shape[1]), v.dtype
+                vp = jnp.zeros((data.shape[1], v.shape[1]), v.dtype
                                ).at[:n].set(v)
-                y = jnp.dot(tg.astype(v.dtype), vp,
+                y = jnp.dot(data.astype(v.dtype), vp,
                             preferred_element_type=jnp.float32)[:n]
                 vals[plan.out_op] = seg_out(plan, y)
-            elif kind == "sddmm":
-                from ..ops import sddmm as sddmm_mod
-                vals[plan.out_op] = sddmm_mod.sddmm_edges(
-                    tg, g, kin(ref(plan.src_op)), kin(ref(plan.dst_op)),
-                    plan.compute, interpret=interpret)
-            elif kind == "pair_agg":
-                from ..ops import pairagg as pair_mod
-
-                def side(terms):
-                    acc = None
-                    for rf, wname in terms:
-                        t_ = ref(rf)
-                        if wname is not None:
-                            t_ = jnp.dot(
-                                kin(t_), kin(params[wname]),
-                                preferred_element_type=jnp.float32)
-                        a = kin(t_)
-                        acc = a if acc is None else acc + a
-                    return acc
-
-                u = side(plan.cterms)
-                v = side(plan.rterms)
-                y_sum, y_max, cnt = pair_mod.pair_aggregate(
-                    tg, u, v, sf=plan.sf, slope=plan.slope,
-                    want_max=ir.MAX in plan.gathers, interpret=interpret)
-                if ir.ADD in plan.gathers:
-                    vals[plan.gathers[ir.ADD]] = y_sum
-                if ir.MAX in plan.gathers:
-                    vals[plan.gathers[ir.MAX]] = y_max
-                if ir.MEAN in plan.gathers:
-                    vals[plan.gathers[ir.MEAN]] = (
-                        y_sum / jnp.maximum(cnt, 1.0))
-            elif kind == "gat_hybrid":
-                # derive mode: when a_src is a linear map of h (canonical
-                # GAT wiring) pass the weight — the tail kernel re-derives
-                # a_s in-kernel (width-128 repack; measured faster in both
-                # dataflows), forced transposed when the geometry allows
-                # (the Reddit production orientation)
-                asrc_prod = graph.by_id.get(plan.asrc_op)
-                w_as = None
-                if (asrc_prod is not None and asrc_prod.compute == ir.MM
-                        and asrc_prod.inputs == [plan.h_op]):
-                    w_as = params[asrc_prod.extra["weight"][0]]
-                df = ("transposed_derive"
-                      if w_as is not None and tc.block_rows % 128 == 0
-                      else None)
-                vals[plan.out_op] = dense_mod.gat_hybrid(
-                    tg, g,
-                    kin(ref(plan.h_op)),
-                    None if w_as is not None else kin(ref(plan.asrc_op)),
-                    kin(ref(plan.adst_op)),
-                    negative_slope=plan.negative_slope,
-                    interpret=interpret, hyb_t=tg_t,
-                    w_asrc=None if w_as is None else kin(w_as),
-                    dataflow=df)
             elif kind == "spmm_stream":
                 from ..ops import chunked
-                if plan.weighted:
-                    vals[plan.out_op] = seg_out(plan, chunked.spmm_chunked(
-                        g, kin(ref(plan.in_op)), chunk=tc.tile_edges * 2048))
-                else:
-                    gw = dataclasses.replace(
-                        g, edge_weight=g.edge_mask.astype(jnp.float32))
-                    vals[plan.out_op] = seg_out(plan, chunked.spmm_chunked(
-                        gw, kin(ref(plan.in_op)), chunk=tc.tile_edges * 2048))
+                gw = g if plan.weighted else dataclasses.replace(
+                    g, edge_weight=g.edge_mask.astype(jnp.float32))
+                vals[plan.out_op] = seg_out(plan, chunked.spmm_chunked(
+                    gw, kin(ref(plan.in_op)), chunk=tc.tile_edges * 2048))
             elif kind == "gat_stream":
                 from ..ops import chunked
                 vals[plan.out_op] = chunked.gat_chunked(
@@ -506,53 +244,16 @@ def lower_schedule(
                     negative_slope=plan.negative_slope,
                     chunk=tc.tile_edges * 2048,
                 )
-            elif kind == "gat_layer":
-                vals[plan.out_op] = gat_mod.gat_layer(
-                    tg,
-                    kin(ref(plan.x_op)),
-                    kin(params[plan.w_name]),
-                    kin(params[plan.was_name]),
-                    kin(params[plan.wad_name]),
-                    negative_slope=plan.negative_slope,
-                    final_sf=plan.final_sf,
-                    interpret=interpret,
-                )
             elif kind == "gat":
-                # when a_src is a linear map of h (the canonical GAT wiring:
-                # op asrc = MM(h)), pass the weight instead of the values —
-                # the kernel derives a_s from the gathered hs, dropping one
-                # K=block_cols one-hot gather; the now-unused XLA a_src op
-                # is dead-code-eliminated by jit
-                asrc_prod = graph.by_id.get(plan.asrc_op)
-                w_as = None
-                if (asrc_prod is not None and asrc_prod.compute == ir.MM
-                        and asrc_prod.inputs == [plan.h_op]):
-                    w_as = params[asrc_prod.extra["weight"][0]]
+                cg, cg_t, perm = data
                 vals[plan.out_op] = gat_mod.gat_attention(
-                    tg,
-                    h_src=kin(ref(plan.h_op)),
-                    a_src=None if w_as is not None else kin(ref(plan.asrc_op)),
-                    a_dst=kin(ref(plan.adst_op)),
-                    heads=plan.heads,
-                    negative_slope=plan.negative_slope,
-                    interpret=interpret,
-                    w_asrc=None if w_as is None else kin(w_as),
-                    g=g if tg_t is not None else None,
-                    tg_t=tg_t[0] if tg_t is not None else None,
-                    ev_perm_t=tg_t[1] if tg_t is not None else None,
-                )
+                    cg, kin(ref(plan.h_op)), ref(plan.asrc_op),
+                    ref(plan.adst_op), negative_slope=plan.negative_slope,
+                    cg_t=cg_t, perm_t=perm)
             else:
                 for oid in block:
-                    op = graph.by_id[oid]
-                    if (fg is not None and op.compute == ir.MM
-                            and op.inputs == [ir.X_INPUT]):
-                        from ..ops import sinput as sinput_mod
-                        name, _, _ = op.extra["weight"]
-                        vals[oid] = sinput_mod.sparse_input_mm(
-                            fg, params[name], compute_dtype=compute_dtype,
-                            interpret=interpret)
-                        continue
-                    vals[oid] = _eval_op(op, vals, params, g, x, compute_dtype)
+                    vals[oid] = _eval_op(graph.by_id[oid], vals, params, g,
+                                         x, compute_dtype)
         if len(outputs) == 1:
             return vals[outputs[0]]
         return {o: vals[o] for o in outputs}

@@ -4,17 +4,14 @@ The reference's compiler+simulator pair predicts the fastest schedule
 without measuring: the compiler sorts candidates by DRAM traffic
 (vTCAD/code/compiler.py:452) and the simulator converts the instruction
 stream to cycles (vTCAD/code/simulator.py:281-355, 423-650) — unit
-occupancy, per-tile nnz, bytes/BW.  Round 2's compile-only pick here used
-traffic alone, and traffic-min ≠ latency-min on TPU (the PNA regression,
-VERDICT r2 weak #2).  This module is the TPU re-design of the simulator's
-*role*: a closed-form latency estimate per schedule, built from
-
-  * the measured one-hot tile-cost model (graph.tile_time_model_ns — the
-    v5e refit of the reference's per-tile nnz replay, simulator.py:292,349),
-  * MXU/HBM rooflines for dense MM ops, and
-  * calibrated per-edge-row costs for XLA's dynamic gather/scatter
-    lowering (TPU dispatches ~1 row/cycle; constants fit on hardware by
-    scripts/latency_fit.py, stored below).
+occupancy, per-tile nnz, bytes/BW.  Traffic-min is not latency-min on a
+real device, so this module plays the simulator's *role* with a linear
+model: every schedule is reduced to a handful of counts (edge rows gathered
+or reduced by XLA, bytes moved by elementwise ops, matmul FLOPs, edges
+walked by each CSR kernel and the kernel programs that walk them, ops
+launched, stream chunks), and its latency is
+the dot product of those counts with per-unit costs fitted on the device by
+``scripts/latency_fit.py`` from the tuner's measured memo.
 
 ``min_latency_schedule`` always ranks the all-XLA candidate alongside the
 kernel candidates, so the compile-only pick can never *model itself* into
@@ -25,476 +22,217 @@ GA seed population, genetic_algorithm.py:68).
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import ir
 from . import schedule as S
 
-# ---------------------------------------------------------------------------
-# calibrated constants (v5e, scripts/latency_fit.py)
-# ---------------------------------------------------------------------------
+# The device the constants below were fitted on (jax device_kind); the memo
+# rows of this device are what tests/test_latency_model.py ranks against.
+CALIBRATED_DEVICE = "NVIDIA H100 80GB HBM3"
+
+# names of the model's counts, in the order of LatencyConstants' fields
+FEATURES = ("program", "xla_take_row", "xla_segment_row", "xla_byte",
+            "mm_flop", "xla_op", "csr_spmm_edge", "csr_gat_edge",
+            "csr_row_block", "kernel_call", "stream_edge", "stream_chunk")
 
 
 @dataclasses.dataclass(frozen=True)
 class LatencyConstants:
-    """v5e-measured primitive costs.  Refit with scripts/latency_fit.py when
-    kernels or the XLA version change; the zoo ranking check
-    (tests/test_latency_model.py + scripts/zoo_bench.py) guards drift."""
+    """Nanoseconds per unit of each count in :data:`FEATURES`, fitted on
+    :data:`CALIBRATED_DEVICE` by scripts/latency_fit.py (non-negative least
+    squares over the measured memo rows)."""
 
-    hbm_gbps: float = 819.0
-    mxu_tflops_bf16: float = 197.0
-    mxu_tflops_f32: float = 49.0
-    # XLA dynamic row ops (take / segment-sum): ns per edge-row per
-    # 128-lane feature group, plus a per-op constant (dispatch + fusion
-    # boundary).  take is one HBM-random read/row; segment ops are
-    # read-modify-write.
-    xla_take_row_ns: float = 1.6
-    xla_segment_row_ns: float = 3.2
-    xla_op_const_ns: float = 2700.0
-    # hybrid dense path: per dense block, A-block DMA (int8 R*C bytes) and
-    # the R x C x F matmul overlap; a per-block constant covers grid +
-    # value-decode passes.  r5 refit on the Reddit dense part (9.4 ms /
-    # 24,439 256^2 int8 blocks at F=128: 385 ns/block total, DMA term
-    # 160 ns -> const ~230; the old 700 was a Cora-era fudge that
-    # over-priced the dense path 2.2x and mis-ranked hybrid at pubmed).
-    dense_block_const_ns: float = 230.0
-    # GAT one-hot chain: two passes over the edge tiles (max+den, then
-    # num/out) with in-kernel a_src derivation — costed as this factor on
-    # the single-pass one-hot time
-    gat_pass_factor: float = 2.2
-    # mega-kernel (whole GAT layer in one pallas call): recomputes the
-    # projections per tile visit and runs the chain at layer width —
-    # measured 4-6x the chain-kernel schedule at Cora shapes (memo
-    # results/memo_gat_cora_l3.csv: 153 vs 26.6 us)
-    layer_kernel_factor: float = 5.0
-    # lax.scan edge streaming: XLA-like per-edge segment cost plus a
-    # per-chunk constant (measured ~= all-XLA at Cora, memo l3bench)
-    stream_chunk_ns: float = 40000.0
-    # grouped stripe-chunk kernel: per-chunk overhead beyond the MXU
-    # matmuls (scalar streams, pipeline), +extra when the weight stream is
-    # live (fit on the 20.5M-edge tail A/B: 51.1 ms unit / 61.4 weighted
-    # at 13.7k chunks, scripts/grouped_ab.py)
-    grouped_chunk_ns: float = 1000.0
-    grouped_weighted_ns: float = 750.0
+    # fitted on the 31 rows of results/memo_{GCN,GAT}_{cora,flickr,reddit}.csv
+    # (NVIDIA H100 80GB HBM3 at a 700 W power limit); a zero means the
+    # memo does not resolve that unit's cost apart from the others
+    program: float = 151353.0         # per call of the lowered program
+    xla_take_row: float = 0.0         # per edge row per 128-lane group
+    xla_segment_row: float = 0.0645196  # per edge row per 128-lane group
+    xla_byte: float = 7.69484e-05     # per byte of elementwise traffic
+    mm_flop: float = 2.71601e-05      # per matmul FLOP
+    xla_op: float = 2660.79           # per XLA op (launch + fusion boundary)
+    csr_spmm_edge: float = 0.0381022  # per edge per 128-lane group
+    csr_gat_edge: float = 0.0442196   # per edge per 128-lane group
+    csr_row_block: float = 2.17169    # per (row, column block) program
+    kernel_call: float = 83090.8      # per CSR kernel call
+    stream_edge: float = 0.530033     # per streamed edge per 128-lane group
+    stream_chunk: float = 11646.5     # per lax.scan chunk
+
+    def vector(self) -> np.ndarray:
+        return np.array([getattr(self, f) for f in FEATURES], float)
 
 
 DEFAULT = LatencyConstants()
-
-
-# ---------------------------------------------------------------------------
-# per-op XLA cost
-# ---------------------------------------------------------------------------
 
 
 def _lane_groups(width: int) -> int:
     return max(-(-max(width, 1) // 128), 1)
 
 
-# Gather/segment row costs are table-RESIDENCY dependent: with the node
-# table under ~2 MB (Cora class) rows stream near 1/cycle (the r2 fit);
-# past it random rows pay HBM latency — pubmed (5 MB table) and flickr
-# (23 MB) BOTH measure ~12.6 ns/edge for the 3-op aggregation vs the
-# Cora-fit ~5.1 (scripts/medium_ab.py r5: pubmed 1.384 ms / 108k edges,
-# flickr 13.13 ms / 1.06 M edges).  One cliff factor models both.
-XLA_TABLE_RESIDENT_BYTES = 2 << 20
-XLA_NONRESIDENT_FACTOR = 2.4
+def _add(acc: Dict[str, float], **kw) -> Dict[str, float]:
+    for k, v in kw.items():
+        acc[k] = acc.get(k, 0.0) + float(v)
+    return acc
 
 
-def _row_factor(stats: S.GraphStats, width: int, dtype_bytes: int) -> float:
-    table = stats.n_node * max(width, 1) * dtype_bytes
-    return XLA_NONRESIDENT_FACTOR if table > XLA_TABLE_RESIDENT_BYTES else 1.0
-
-
-def xla_op_ns(
-    op: ir.Op,
-    graph: ir.OpGraph,
-    stats: S.GraphStats,
-    dtype_bytes: int = 2,
-    c: LatencyConstants = DEFAULT,
-) -> float:
-    """Modelled latency of one op under per-op XLA lowering."""
+def xla_op_counts(op: ir.Op, stats: S.GraphStats,
+                  dtype_bytes: int = 2) -> Dict[str, float]:
+    """Counts of one op under per-op XLA lowering."""
     n, e = stats.n_node, stats.e_pad
     w = max(op.out_width, 1)
+    c = _add({}, xla_op=1)
     if op.kind == ir.SCATTER:
-        t = (c.xla_take_row_ns * e * _lane_groups(w)
-             * _row_factor(stats, w, dtype_bytes))
-        return t + c.xla_op_const_ns
+        return _add(c, xla_take_row=e * _lane_groups(w))
     if op.kind == ir.GATHER:
-        t = (c.xla_segment_row_ns * e * _lane_groups(w)
-             * _row_factor(stats, w, dtype_bytes))
-        return t + c.xla_op_const_ns
+        return _add(c, xla_segment_row=e * _lane_groups(w))
+    reads = max(len(op.inputs), 1)
     if op.kind == ir.APPLY_EDGE:
-        reads = max(len(op.inputs), 1)
-        byts = (reads + 1) * e * w * dtype_bytes
-        return byts / c.hbm_gbps + c.xla_op_const_ns
-    # apply_node
+        return _add(c, xla_byte=(reads + 1) * e * w * dtype_bytes)
     wt = op.extra.get("weight")
     if op.compute == ir.MM and wt is not None:
         _, iw, ow = wt
-        flops = 2.0 * n * iw * ow
-        mxu = (c.mxu_tflops_bf16 if dtype_bytes <= 2 else c.mxu_tflops_f32)
-        byts = (n * iw + n * ow + iw * ow) * dtype_bytes
-        return max(flops / (mxu * 1e3), byts / c.hbm_gbps) + c.xla_op_const_ns
-    reads = max(len(op.inputs), 1)
-    byts = (reads + 1) * n * w * dtype_bytes
-    return byts / c.hbm_gbps + c.xla_op_const_ns
+        return _add(c, mm_flop=2.0 * n * iw * ow,
+                    xla_byte=(n * iw + n * ow + iw * ow) * dtype_bytes)
+    return _add(c, xla_byte=(reads + 1) * n * w * dtype_bytes)
 
 
-# ---------------------------------------------------------------------------
-# kernel block cost
-# ---------------------------------------------------------------------------
-
-
-class GraphCost:
-    """Per-host-graph cost oracle: caches run-nnz histograms per tile
-    geometry (the reference's adj_<ds>_<T> nnz files, C12) and prices
-    kernel blocks with the measured tile-cost model."""
-
-    def __init__(self, host_graph, constants: LatencyConstants = DEFAULT):
-        self.g = host_graph
-        self.c = constants
-        self.stats = S.GraphStats(
-            n_node=host_graph.n_node,
-            n_edge=host_graph.n_edge,
-            e_pad=host_graph.e_pad,
-        )
-
-    @functools.lru_cache(maxsize=64)
-    def _hist(self, br: int, bc: int) -> np.ndarray:
-        from ..graph import run_nnz_hist
-        return run_nnz_hist(self.g, br, bc)
-
-    def onehot_ns(self, tc: S.TileConfig, feat_width: int,
-                  dtype_bytes: int = 2, include_ramp: bool = True) -> float:
-        from ..graph import tile_time_model_ns
-        hist = self._hist(tc.block_rows, tc.block_cols)
-        if len(hist) == 0:
-            return 0.0
-        return tile_time_model_ns(
-            hist, tc.tile_edges, tc.block_rows, tc.block_cols,
-            feat_width=max(feat_width, 1), x_bytes=dtype_bytes,
-            include_ramp=include_ramp)
-
-    def ramp_ns(self, tc: S.TileConfig, feat_width: int = 128,
-                dense_threshold: int = 0) -> float:
-        """Short-grid pipeline ramp (graph.grid_ramp_ns) — a PER-CALL cost:
-        multi-pass chain factors (GAT / pair-agg) must add it once,
-        unscaled.  ``dense_threshold`` restricts the histogram to the runs
-        a hybrid split leaves in the sparse tail — dense-absorbed runs pay
-        no panel-switch/tile ramp, so hybrid candidates must not be charged
-        for them (they were, over-penalising hybrid at small scales)."""
-        from ..graph import grid_ramp_ns
-        if dense_threshold > 0:
-            hist = self._tail_hist(tc.block_rows, tc.block_cols,
-                                   tc.dense_block or tc.block_rows,
-                                   tc.dense_block or tc.block_cols,
-                                   dense_threshold)
-        else:
-            hist = self._hist(tc.block_rows, tc.block_cols)
-        if len(hist) == 0:
-            return 0.0
-        tiles = float(np.ceil(hist / tc.tile_edges).sum())
-        return grid_ramp_ns(len(hist), tiles, feat_width)
-
-    @functools.lru_cache(maxsize=64)
-    def _tail_hist(self, br: int, bc: int, drows: int, dcols: int,
-                   thr: int) -> np.ndarray:
-        """Run-nnz histogram at the TAIL geometry (br, bc) over exactly
-        the edges the hybrid split leaves sparse (dense grid
-        (drows, dcols), threshold ``thr``) — the lowering decouples the
-        two geometries (fusion.get_hybrid), so the model must too."""
-        from ..graph import _as_host, block_nnz
-        hg = _as_host(self.g)
-        ne = hg.n_edge
-        if ne == 0:
-            return np.zeros(0, np.int64)
-        bn = block_nnz(hg, drows, dcols)
-        ncb_d = bn.shape[1]
-        s = hg.senders[:ne]
-        r = hg.receivers[:ne]
-        keyd = (r // drows).astype(np.int64) * ncb_d + s // dcols
-        tail = bn.reshape(-1)[keyd] < thr
-        ncb = max(-(-hg.n_node // bc), 1)
-        key = ((r[tail] // br).astype(np.int64) * ncb + s[tail] // bc)
-        cnt = np.bincount(key)
-        return cnt[cnt > 0]
-
-    @functools.lru_cache(maxsize=64)
-    def _dense_count(self, drows: int, dcols: int, thr: int):
-        """(n_dense_blocks, n_dense_edges) of the hybrid split."""
-        from ..graph import block_nnz
-        bn = block_nnz(self.g, drows, dcols).reshape(-1)
-        m = bn >= thr
-        return int(m.sum()), int(bn[m].sum())
-
-    def hybrid_ns(self, tc: S.TileConfig, feat_width: int,
-                  dense_threshold: int, dtype_bytes: int = 2,
-                  include_ramp: bool = True,
-                  dense_value_bytes: int = 1) -> float:
-        from ..graph import tile_time_model_ns
-        drows = tc.dense_block or tc.block_rows
-        dcols = tc.dense_block or tc.block_cols
-        c = self.c
-        f = max(feat_width, 1)
-        nb, _ = self._dense_count(drows, dcols, dense_threshold)
-        # per dense block: A DMA (int8 counts by default) + x panel DMA vs
-        # the matmul, plus a fixed per-block cost (grid step, decode,
-        # partial accumulate)
-        mxu = c.mxu_tflops_bf16 if dtype_bytes <= 2 else c.mxu_tflops_f32
-        per_block = max((drows * dcols * dense_value_bytes
-                         + dcols * f * dtype_bytes) / c.hbm_gbps,
-                        2.0 * drows * dcols * f / (mxu * 1e3))
-        t = nb * (per_block + c.dense_block_const_ns)
-        tail = self._tail_hist(tc.block_rows, tc.block_cols,
-                               drows, dcols, dense_threshold)
-        if len(tail):
-            t += tile_time_model_ns(
-                tail, tc.tile_edges, tc.block_rows, tc.block_cols,
-                feat_width=f, x_bytes=dtype_bytes,
-                include_ramp=include_ramp)
-        return t
-
-    @functools.lru_cache(maxsize=64)
-    def _grouped_chunks(self, br: int, bc: int, et: int, g: int) -> int:
-        """Chunk count of the grouped tiler at this geometry: per
-        (stripe-group, col-block), the max tile depth over its row
-        blocks."""
-        from ..graph import _as_host
-        hg = _as_host(self.g)
-        ne = hg.n_edge
-        if ne == 0:
-            return 1
-        r = hg.receivers[:ne]
-        s = hg.senders[:ne]
-        ncb = max(-(-hg.n_node // bc), 1)
-        rb = (r // br).astype(np.int64)
-        cb = (s // bc).astype(np.int64)
-        key = (rb // g) * ncb * g + cb * g + rb % g
-        cnt = np.bincount(key)
-        cnt = cnt[cnt > 0]
-        levels = -(-cnt // et)
-        # group by (grp, cb): consecutive keys share (grp, cb) when rb%g
-        # varies — rebuild the (grp, cb) key of each run
-        uniq = np.unique((rb // g) * ncb * g + cb * g + rb % g)
-        gc = uniq // g
-        order = np.argsort(gc, kind="stable")
-        gc_s, lv_s = gc[order], levels[order]
-        starts = np.flatnonzero(np.concatenate([[True],
-                                                gc_s[1:] != gc_s[:-1]]))
-        return int(np.maximum.reduceat(lv_s, starts).sum())
-
-    def grouped_ns(self, tc: S.TileConfig, feat_width: int,
-                   dtype_bytes: int = 2, weighted: bool = True) -> float:
-        g = S.GROUPED_G
-        nc = self._grouped_chunks(tc.block_rows, tc.block_cols,
-                                  tc.tile_edges, g)
-        c = self.c
-        f = max(feat_width, 1)
-        mxu = c.mxu_tflops_bf16 if dtype_bytes <= 2 else c.mxu_tflops_f32
-        compute = (2.0 * g * tc.tile_edges
-                   * (tc.block_rows + tc.block_cols) * f / (mxu * 1e3))
-        panel = tc.block_cols * f * dtype_bytes / c.hbm_gbps
-        per = max(compute, panel) + c.grouped_chunk_ns
-        if weighted:
-            per += c.grouped_weighted_ns
-        return nc * per
-
-    def stream_ns(self, tc: S.TileConfig, feat_width: int,
-                  dtype_bytes: int = 2) -> float:
-        # chunked lax.scan over edges lowers to the same dynamic take +
-        # segment ops as per-op XLA, plus per-chunk scan overhead.  The
-        # 1.5x row factor is an r4 calibration: measured stream ~= the
-        # fused per-op XLA path (GCN memo stream rows 170 us vs 108
-        # modelled; GCN-pubmed compiled pick chose stream at 3.86 ms vs
-        # 3.54 ms per-op XLA) — the scan's serialization makes its rows
-        # COST more than the freely-reordered XLA ops, not less.
-        chunk = tc.tile_edges * 2048
-        chunks = max(-(-self.stats.e_pad // chunk), 1)
-        lanes = max(-(-max(feat_width, 1) // 128), 1)
-        per_edge = 1.5 * (self.c.xla_take_row_ns + self.c.xla_segment_row_ns)
-        per_edge *= _row_factor(self.stats, feat_width, dtype_bytes)
-        return (per_edge * self.stats.e_pad * lanes
-                + chunks * self.c.stream_chunk_ns)
-
-
-def block_ns(
-    graph: ir.OpGraph,
-    block: Sequence[int],
-    tc: S.TileConfig,
-    cost: GraphCost,
-    dtype_bytes: int = 2,
-) -> float:
-    """Modelled latency of one fused block under its TileConfig.  Dispatch
-    mirrors the lowering exactly (fusion.classify_block) so the model
-    prices what actually runs — e.g. a mega-layer block with a hybrid
-    path silently lowers to XLA, and must be costed as XLA."""
+def block_counts(graph: ir.OpGraph, block: Sequence[int], tc: S.TileConfig,
+                 stats: S.GraphStats, dtype_bytes: int = 2
+                 ) -> Dict[str, float]:
+    """Counts of one fused block under its TileConfig.  Dispatch mirrors
+    the lowering exactly (fusion.classify_block), so the model prices what
+    actually runs."""
     from .fusion import classify_block
-    from ..ops import dense as dense_mod
-    c = cost.c
-
-    def xla_block() -> float:
-        return sum(xla_op_ns(graph.by_id[o], graph, cost.stats,
-                             dtype_bytes, c) for o in block)
-
     kind, plan = classify_block(graph, block, tc)
-
-    if kind == "xla":
-        return xla_block()
+    e = stats.e_pad
+    # a CSR kernel runs one program per (destination row, column block):
+    # on low-degree graphs most of a program's edge lanes are masked, so
+    # its cost follows the rows, not the edges
     if kind == "spmm":
-        return cost.onehot_ns(tc, graph.width_of(plan.in_op), dtype_bytes)
-    if kind == "spmm_grouped":
-        return cost.grouped_ns(tc, graph.width_of(plan.in_op), dtype_bytes,
-                               weighted=plan.weighted)
-    if kind == "spmm_hybrid":
-        thr = dense_mod.hybrid_threshold(
-            cost.g, "spmm",
-            dense_rows=tc.dense_block or tc.block_rows,
-            dense_cols=tc.dense_block or tc.block_cols)
-        return cost.hybrid_ns(tc, graph.width_of(plan.in_op), thr,
-                              dtype_bytes)
+        groups = _lane_groups(graph.width_of(plan.in_op))
+        return _add({}, kernel_call=1, csr_spmm_edge=e * groups,
+                    csr_row_block=stats.n_node * groups)
+    if kind == "gat":
+        return _add({}, kernel_call=1, csr_gat_edge=e * _lane_groups(
+            graph.width_of(plan.h_op)), csr_row_block=stats.n_node
+            * plan.heads)
     if kind == "spmm_densefull":
-        from ..graph import DENSEFULL_MAX_N
-        if cost.stats.n_node > DENSEFULL_MAX_N:
-            return xla_block()      # the lowering falls back to XLA too
-        n_pad = -(-cost.stats.n_node // 256) * 256
+        n_pad = -(-stats.n_node // 256) * 256
         f = max(graph.width_of(plan.in_op), 1)
-        byts = (n_pad * n_pad * 2.0            # A bf16, read once
-                + 2.0 * n_pad * f * dtype_bytes)
-        flops = 2.0 * n_pad * n_pad * f
-        mxu = c.mxu_tflops_bf16 if dtype_bytes <= 2 else c.mxu_tflops_f32
-        return max(byts / c.hbm_gbps, flops / (mxu * 1e3)) \
-            + c.xla_op_const_ns
-    if kind == "spmm_stream":
-        return cost.stream_ns(tc, graph.width_of(plan.in_op), dtype_bytes)
-    if kind == "sddmm":
-        fw = graph.width_of(plan.src_op)
-        return cost.onehot_ns(tc, max(2 * fw, 8), dtype_bytes)
-    if kind == "pair_agg":
-        # two gather matmuls + scatter(s), costed as a factor on the
-        # one-hot unit.  Per-aggregator-set factors (VERDICT r4 weak-5):
-        # the r4 single-run fits (DGN[sum] 2.57, PNA[sum,max,mean] 1.75)
-        # were dismissed as under the ~13% noise; the r5 MEDIAN-of-3 zoo
-        # measurements CONFIRM them (DGN -16% under the flat 2.2, PNA
-        # +16% over).  The kernel always computes sum/max/cnt in one pass
-        # (pair_aggregate_raw), so a consumer using more outputs amortises
-        # the pass better — hence the multi-aggregator factor is LOWER.
-        aggs = set(plan.gathers)
-        pf = 2.6 if aggs == {ir.ADD} else (1.8 if ir.MAX in aggs else 2.2)
-        # the per-call ramp is added ONCE, unscaled, and the edge/node MMs
-        # the matcher distributes into u/v ((XW)[s] ≡ X[s]W) are real
-        # runtime matmuls priced like the xla MM term (no dispatch const:
-        # they fuse into the operand build).
-        t = (pf * cost.onehot_ns(tc, plan.width, dtype_bytes,
-                                 include_ramp=False)
-             + cost.ramp_ns(tc, plan.width))
-        mxu = (c.mxu_tflops_bf16 if dtype_bytes <= 2
-               else c.mxu_tflops_f32)
-        for o in block:
-            op = graph.by_id[o]
-            if op.compute == ir.MM and op.extra.get("weight"):
-                _, iw, ow = op.extra["weight"]
-                flops = 2.0 * cost.stats.n_node * iw * ow
-                byts = (cost.stats.n_node * (iw + ow) + iw * ow)                     * dtype_bytes
-                t += max(flops / (mxu * 1e3), byts / c.hbm_gbps)
-        return t
-
-    # GAT chain variants
-    if kind == "gat_layer":
-        mm = next(graph.by_id[o] for o in block
-                  if graph.by_id[o].compute == ir.MM
-                  and graph.by_id[o].extra.get("weight")
-                  and graph.by_id[o].extra["weight"][0] == plan.w_name)
-        hd = mm.out_width
-        base = (c.layer_kernel_factor * c.gat_pass_factor
-                * cost.onehot_ns(tc, hd, dtype_bytes, include_ramp=False)
-                + cost.ramp_ns(tc, hd))
-        mxu = c.mxu_tflops_bf16 if dtype_bytes <= 2 else c.mxu_tflops_f32
-        for o in block:
-            op = graph.by_id[o]
-            if op.compute == ir.MM and op.extra.get("weight"):
-                _, iw, ow = op.extra["weight"]
-                base += 2.0 * cost.stats.n_node * iw * ow / (mxu * 1e3)
-        return base
-    hd = graph.width_of(plan.h_op)
-    if kind == "gat_hybrid":
-        # int8 'cr' blocks at the transposed-kernel threshold, dense grid
-        # per the schedule's dense_block knob (fusion.py get_hybrid)
-        thr = dense_mod.hybrid_threshold(
-            cost.g, "gat", heads=plan.heads,
-            head_dim=hd // max(plan.heads, 1),
-            dense_rows=tc.dense_block or tc.block_rows,
-            dense_cols=tc.dense_block or tc.block_cols)
-        return (c.gat_pass_factor
-                * cost.hybrid_ns(tc, hd, thr, dtype_bytes,
-                                 include_ramp=False)
-                + cost.ramp_ns(tc, hd, dense_threshold=thr))
-    if kind == "gat_stream":
-        return c.gat_pass_factor * cost.stream_ns(tc, hd, dtype_bytes)
-    return (c.gat_pass_factor
-            * cost.onehot_ns(tc, hd, dtype_bytes, include_ramp=False)
-            + cost.ramp_ns(tc, hd))
+        return _add({}, xla_op=1, mm_flop=2.0 * n_pad * n_pad * f,
+                    xla_byte=n_pad * n_pad * 2.0 + 2.0 * n_pad * f
+                    * dtype_bytes)
+    if kind in ("spmm_stream", "gat_stream"):
+        chunk = tc.tile_edges * 2048
+        chunks = max(-(-e // chunk), 1)
+        width = graph.width_of(plan.in_op if kind == "spmm_stream"
+                               else plan.h_op)
+        passes = 1 if kind == "spmm_stream" else 2
+        return _add({}, stream_chunk=passes * chunks,
+                    stream_edge=passes * e * _lane_groups(width))
+    acc: Dict[str, float] = {}
+    for o in block:
+        _add(acc, **xla_op_counts(graph.by_id[o], stats, dtype_bytes))
+    return acc
 
 
-def schedule_ns(
-    graph: ir.OpGraph,
-    sched: S.Schedule,
-    cost: GraphCost,
-    dtype_bytes: int = 2,
-) -> float:
-    """Modelled end-to-end latency of a schedule (sum over blocks — blocks
-    execute sequentially; XLA's intra-block overlap is inside the per-op
-    constants)."""
-    return sum(block_ns(graph, b, tc, cost, dtype_bytes)
-               for b, tc in zip(sched.blocks, sched.tiles))
+def schedule_counts(graph: ir.OpGraph, sched: S.Schedule,
+                    stats: S.GraphStats, dtype_bytes: int = 2) -> np.ndarray:
+    """The schedule's count vector (order: :data:`FEATURES`)."""
+    acc: Dict[str, float] = {"program": 1.0}
+    for b, tc in zip(sched.blocks, sched.tiles):
+        _add(acc, **block_counts(graph, b, tc, stats, dtype_bytes))
+    return np.array([acc.get(f, 0.0) for f in FEATURES], float)
+
+
+def graph_stats(host_graph) -> S.GraphStats:
+    return S.GraphStats(n_node=host_graph.n_node, n_edge=host_graph.n_edge,
+                        e_pad=host_graph.e_pad)
+
+
+# Sizes of the memo graphs too large to rebuild for a fit or a test: the
+# full-batch Reddit-scale graph of ``cli tune --dataset reddit
+# --communities 1000 --seed 1`` (data.datasets.community_dataset), as that
+# command reports them
+LARGE_MEMO_GRAPHS = {
+    "reddit": S.GraphStats(n_node=232965, n_edge=114505698,
+                           e_pad=114505728),
+}
+
+
+def memo_graph_stats(dataset: str) -> S.GraphStats:
+    """GraphStats of the graph the tuner memo of ``dataset`` measured."""
+    if dataset in LARGE_MEMO_GRAPHS:
+        return LARGE_MEMO_GRAPHS[dataset]
+    from ..data.datasets import load_dataset
+    return graph_stats(load_dataset(dataset).host_graph)
+
+
+def schedule_ns(graph: ir.OpGraph, sched: S.Schedule, stats: S.GraphStats,
+                dtype_bytes: int = 2,
+                c: LatencyConstants = DEFAULT) -> float:
+    """Modelled end-to-end latency of a schedule."""
+    return float(schedule_counts(graph, sched, stats, dtype_bytes)
+                 @ c.vector())
 
 
 def spearman_rank(a: Sequence[float], b: Sequence[float]) -> float:
-    ra = np.argsort(np.argsort(a)).astype(float)
-    rb = np.argsort(np.argsort(b)).astype(float)
-    ra -= ra.mean()
-    rb -= rb.mean()
-    d = (ra * ra).sum() ** 0.5 * (rb * rb).sum() ** 0.5
-    return float((ra * rb).sum() / d) if d else 0.0
+    """Spearman's rho, 1 - 6 sum d^2 / (n (n^2 - 1)), over the argsort
+    ranks (distinct by construction)."""
+    n = len(a)
+    if n < 2:
+        return 0.0
+    ra = np.argsort(np.argsort(a))
+    rb = np.argsort(np.argsort(b))
+    d2 = int(((ra - rb) ** 2).sum())
+    return 1.0 - 6.0 * d2 / (n * (n * n - 1))
 
 
-def rank_check(memo_csv: str, graph_name: str, graph: ir.OpGraph,
-               host_graph, dtype_bytes: int = 2,
-               version: Optional[int] = None) -> Optional[dict]:
-    """Validate the model's ranking against the memoised measured
-    latencies (tune.search CSV memo — the reference's C15 regression log).
-    Uses the CURRENT KERNEL_VERSION's rows (the model must price what the
-    current lowering runs; older rows measured older implementations).
-    Returns {rows, spearman, argmin_regret} or None when the memo has no
-    matching entries for ``graph_name``.  CI floor:
-    tests/test_latency_model.py (drift in the fitted constants fails
-    there first)."""
+def memo_rows(memo_csv: str, graph_name: str,
+              device_kind: str = CALIBRATED_DEVICE,
+              version: Optional[int] = None):
+    """(schedule, measured seconds) of the memo rows written by the tuner
+    for ``graph_name`` on ``device_kind`` at the current KERNEL_VERSION."""
     import csv
     import os
 
     if version is None:
         from .fusion import KERNEL_VERSION
         version = KERNEL_VERSION
-    prefix = f"v{version}|"
     if not os.path.exists(memo_csv):
-        return None
-    cost = GraphCost(host_graph)
-    rows = []
+        return []
+    out = []
     with open(memo_csv) as f:
         for rec in csv.reader(f):
-            if len(rec) != 2 or not rec[0].startswith(prefix):
+            if len(rec) != 2:
                 continue
-            _, name, key = rec[0].split("|", 2)
-            if name != graph_name:
+            parts = rec[0].split("|", 3)
+            if len(parts) != 4 or parts[0] != f"v{version}":
                 continue
-            try:
-                sched = S.Schedule.from_key(key)
-            except Exception:
+            if parts[1] != device_kind or parts[2] != graph_name:
                 continue
-            modelled = schedule_ns(graph, sched, cost, dtype_bytes) / 1e3
-            rows.append((float(rec[1]) * 1e6, modelled, key))
+            out.append((S.Schedule.from_key(parts[3]), float(rec[1])))
+    return out
+
+
+def rank_check(memo_csv: str, graph_name: str, graph: ir.OpGraph,
+               host_graph, dtype_bytes: int = 2,
+               device_kind: str = CALIBRATED_DEVICE,
+               constants: LatencyConstants = DEFAULT) -> Optional[dict]:
+    """Validate the model's ranking against the memoised measured
+    latencies (tune.search CSV memo — the reference's C15 regression log).
+    ``host_graph`` may be the graph's GraphStats (:func:`memo_graph_stats`).
+    Returns {rows, spearman, argmin_regret} or None when the memo has no
+    matching entries.  CI floor: tests/test_latency_model.py."""
+    stats = graph_stats(host_graph)
+    rows = []
+    for sched, secs in memo_rows(memo_csv, graph_name, device_kind):
+        modelled = schedule_ns(graph, sched, stats, dtype_bytes,
+                               constants) / 1e3
+        rows.append((secs * 1e6, modelled, sched.key()))
     if not rows:
         return None
     rows.sort()
@@ -523,19 +261,45 @@ def min_latency_schedule(
     """Compile-only pick: argmin modelled latency over the candidate pool
     (the reference's compiler+simulator sort, simulator.py:423-650) —
     including the all-XLA schedule, so the pick never *models* a
-    regression vs per-op XLA.  Returns (schedule, modelled_ns)."""
-    from ..tune.search import _candidate_schedules
+    regression vs per-op XLA.  Candidates that would not run as named
+    (tune.search.runnable) are skipped.  ``host_graph`` may be the graph's
+    :class:`~.schedule.GraphStats`: the pick reads only its sizes.
+    Returns (schedule, modelled_ns)."""
+    from ..tune.search import _candidate_schedules, runnable
     if tile_palette is None:
         from ..hwconfig import load_hw_config
         tile_palette = load_hw_config().palette()
     fw = feat_width or graph.in_width
-    cost = GraphCost(host_graph, constants)
+    stats = graph_stats(host_graph)
     best, best_t = None, float("inf")
     for cand in _candidate_schedules(graph, max_partitions, tile_palette):
-        if any(tc.path == S.PATH_ONEHOT and not S.tile_is_feasible(tc, fw)
-               for tc in cand.tiles):
+        if not runnable(cand, fw, stats.n_node):
             continue
-        t = schedule_ns(graph, cand, cost, dtype_bytes)
+        t = schedule_ns(graph, cand, stats, dtype_bytes, constants)
         if t < best_t:
             best, best_t = cand, t
     return best, best_t
+
+
+def pick_model_schedules(layers: Sequence[ir.OpGraph], host_graph,
+                         in_width: int, training: bool = False
+                         ) -> Tuple[list, float]:
+    """The compile-only pick of every layer of a model stack, each at its
+    own input width: ``([schedule per layer], modelled ns of the stack)``
+    (what ``cli run|train --compiled`` executes).
+
+    ``training`` leaves out the stream path: the model prices forwards
+    (the tuner times forwards), and the stream path's ``lax.scan``
+    backward costs far more than its forward — on an H100, Cora GAT
+    trained at 5.3 ms a step on it against 0.9 ms on XLA (PERF.md)."""
+    from ..hwconfig import load_hw_config
+    palette = tuple(tc for tc in load_hw_config().palette()
+                    if not (training and tc.path == S.PATH_STREAM))
+    scheds, total, w = [], 0.0, in_width
+    for g in layers:
+        sc, t_ns = min_latency_schedule(g, host_graph, feat_width=w,
+                                        tile_palette=palette)
+        scheds.append(sc)
+        total += t_ns
+        w = max(op.out_width for op in g.ops if op.op_id in g.outputs)
+    return scheds, total

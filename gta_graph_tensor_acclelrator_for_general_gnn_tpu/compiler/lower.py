@@ -3,10 +3,9 @@
 Where the reference interpreter lowers a fused schedule to a YAML instruction
 stream that is *replayed by a simulator* (vTCAD/code/interpreter.py:809-853),
 this module lowers an :class:`~..ir.OpGraph` to a plain JAX function that XLA
-compiles for the TPU.  A second entry point (`lower_fused`, in
-``fusion.py``) pattern-matches fused blocks onto Pallas kernels; everything
-that doesn't match falls back to these XLA primitives, which are themselves
-heavily fused by XLA.
+compiles for the device.  A second entry point (``lower_schedule``, in
+``fusion.py``) pattern-matches fused blocks onto the CSR kernels; every other
+block lowers to these XLA primitives, which XLA fuses further.
 """
 from __future__ import annotations
 

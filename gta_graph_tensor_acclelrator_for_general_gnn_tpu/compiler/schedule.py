@@ -1,14 +1,15 @@
 """Schedules: fusion partitions + tile sizes, with an analytic cost model.
 
-This is the TPU re-design of the reference compiler (vTCAD/code/compiler.py):
+This is the re-design of the reference compiler (vTCAD/code/compiler.py):
 
 * the *fusion pattern* (one bit per op-DAG edge, ``generate_all_binaries``
   :394-454) becomes a partition of the op graph into blocks; blocks matching
-  a Pallas kernel pattern execute fused on-chip, everything else lowers to
-  XLA ops (which XLA further fuses);
+  a kernel pattern execute fused, everything else lowers to XLA ops (which
+  XLA further fuses);
 * the *tile size search* (``binary_search`` under the 2MB buffer,
-  :67-131) becomes the Pallas block-size choice (block_rows/cols,
-  tile_edges) under the VMEM budget;
+  :67-131) survives as the reference's buffer model: :func:`buffer_bytes`
+  / :func:`tile_is_feasible` bound a tile by a configured on-chip buffer
+  (``configs/reference_gta.json`` reproduces the reference's 2 MB);
 * the *DRAM traffic model* (``cal_size`` :153-270) becomes
   :func:`traffic_bytes` — HBM bytes per schedule, used to prune candidates
   before measuring real latency (the reference pruned with
@@ -26,56 +27,49 @@ BYTES = 4  # f32; bf16 halves traffic (tracked via dtype_bytes arg)
 
 
 PATH_XLA = "xla"         # per-op XLA primitives (materialised edge tensors)
-PATH_ONEHOT = "onehot"   # Pallas one-hot MXU kernel (edge tiles)
+PATH_CSR = "csr"         # CSR Pallas kernels (ops/spmm.py, ops/gat.py):
+                         # one fused gather-reduce per SpMM / GAT block
 PATH_STREAM = "stream"   # lax.scan edge streaming (memory-bounded regime)
-PATH_HYBRID = "hybrid"   # density-split: dense blocks on MXU-direct kernels,
-                         # sparse remainder on one-hot edge tiles (the
-                         # reference's per-tile MM-vs-VEC dispatch,
-                         # simulator.py:541-545, generalised)
-PATH_GROUPED = "grouped" # stripe-group chunked one-hot SpMM (half the
-                         # one-hot width at equal utilisation; the round-3
-                         # sparse-tail kernel).  SpMM blocks only.
 PATH_DENSEFULL = "densefull"  # FULL dense adjacency matmul: y = A @ x with
-                         # A materialised [N_pad, N_pad] bf16 — one big MXU
-                         # op.  The medium-density regime's winner (pubmed
-                         # class: N <= ~32k, E/N ~ 5: one-hot tiles are
-                         # underfilled, XLA gathers row-at-a-time, but a
-                         # 20k^2 matmul runs ~1 ms at full MXU util).
-                         # SpMM blocks only; guarded by a node-count cap.
-PATHS = (PATH_XLA, PATH_ONEHOT, PATH_STREAM, PATH_HYBRID, PATH_GROUPED,
-         PATH_DENSEFULL)
+                         # A materialised [N_pad, N_pad] bf16 — one big
+                         # tensor-core op for medium N.  SpMM blocks only;
+                         # guarded by graph.densefull_max_n.
+PATHS = (PATH_XLA, PATH_CSR, PATH_STREAM, PATH_DENSEFULL)
 
 
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
     """Per-block execution config (the reference's per-block
-    ``[tile_rows, tile_cols]`` plus the MM-vs-VEC dispatch choice,
-    simulator.py:541-545, generalised to three paths):
+    ``[tile_rows, tile_cols]`` plus the kernel-vs-XLA dispatch choice,
+    simulator.py:541-545):
 
-    * ``xla``    — per-op XLA lowering; fastest for sparse graphs that fit
-      ([E, F] edge tensors materialise in HBM);
-    * ``onehot`` — the Pallas one-hot MXU kernel; wins on dense adjacency
-      blocks (work scales with tile capacity, not real edges);
-    * ``stream`` — chunked lax.scan streaming; required once [E, F] exceeds
-      HBM (Reddit full-batch).
-    block_* / tile_edges parameterise the onehot kernel; ``tile_edges`` also
-    sets the stream chunk (x 2048)."""
+    * ``xla``       — per-op XLA lowering ([E, F] edge tensors in HBM);
+    * ``csr``       — the CSR kernels (SpMM and GAT blocks);
+    * ``stream``    — chunked lax.scan streaming; ``tile_edges`` x 2048
+      edges per chunk;
+    * ``densefull`` — dense adjacency matmul (SpMM blocks).
+
+    ``block_rows`` / ``block_cols`` / ``tile_edges`` are the reference's
+    tile: the buffer model (:func:`tile_is_feasible`) bounds them, and the
+    stream path takes its chunk from ``tile_edges``.  The CSR kernels take
+    their launch parameters from ops/spmm.LAUNCH, not from the tile."""
     block_rows: int = 256
     block_cols: int = 256
     tile_edges: int = 512
-    path: str = PATH_ONEHOT
-    # PATH_HYBRID only: side of the SQUARE dense-block grid, decoupled from
-    # the edge-tail geometry above (0 = dense grid follows block_rows/cols).
-    # Large graphs measure best with a small dense grid (256) and a large
-    # tail (1024^2/512) — the r2-r4 Reddit recipe.
-    dense_block: int = 0
+    path: str = PATH_CSR
 
     def key(self) -> Tuple:
-        base = (self.block_rows, self.block_cols, self.tile_edges, self.path)
-        return base + ((f"d{self.dense_block}",) if self.dense_block else ())
+        return (self.block_rows, self.block_cols, self.tile_edges, self.path)
+
+    def exec_key(self) -> Tuple:
+        """What the lowering distinguishes: the path, plus the chunk on
+        the stream path."""
+        if self.path == PATH_STREAM:
+            return (self.path, self.tile_edges)
+        return (self.path,)
 
     @property
-    def kernel(self) -> bool:   # legacy alias
+    def kernel(self) -> bool:
         return self.path != PATH_XLA
 
 
@@ -104,12 +98,7 @@ class Schedule:
         for t in ts.split(";"):
             # maxsplit: the path name may itself contain 'x' ("xla")
             br, bc, te, path = t.split("x", 3)
-            dense = 0
-            if "xd" in path:
-                path, d = path.rsplit("xd", 1)
-                dense = int(d)
-            tiles.append(TileConfig(int(br), int(bc), int(te), path,
-                                    dense_block=dense))
+            tiles.append(TileConfig(int(br), int(bc), int(te), path))
         return cls(blocks=blocks, tiles=tuple(tiles))
 
 
@@ -252,41 +241,6 @@ def aggregation_partition(
     return tuple(tuple(b) for b in part)
 
 
-def pair_agg_partition(
-        graph: ir.OpGraph) -> Optional[Tuple[Tuple[int, ...], ...]]:
-    """Partition isolating the DGN/PNA pair-sum aggregation chain
-    (z = sf(u[src]+v[dst]) followed by its gather set) as ONE block for the
-    fused pair-aggregate kernel (ops/pairagg.py), everything else
-    singleton.  The enumerator cannot reach this shape (the chain crosses
-    the scatter-order breakpoint the reference's fusion rule forbids,
-    compiler.py:472-473 — the fused kernel never materialises the edge
-    value, so the rule does not apply to it)."""
-    from ..ops.pairagg import match_pair_agg, _collect_terms
-    all_ids = {op.op_id for op in graph.ops}
-    for g0 in graph.ops:
-        if g0.kind != ir.GATHER or not g0.inputs or g0.inputs[0] < 0:
-            continue
-        root = g0.inputs[0]
-        gathers = [op.op_id for op in graph.ops
-                   if op.kind == ir.GATHER and op.inputs == [root]]
-        rop = graph.by_id[root]
-        block = set(gathers)
-        expr_root = root
-        if rop.kind == ir.APPLY_EDGE and rop.compute == ir.SF:
-            block.add(root)
-            expr_root = rop.inputs[0]
-        got = _collect_terms(graph, expr_root, all_ids)
-        if got is None:
-            continue
-        block |= got[2]
-        if match_pair_agg(graph, sorted(block)) is None:
-            continue
-        rest = [[o] for o in graph.topo_order() if o not in block]
-        part = _order_blocks(graph, [sorted(block)] + rest)
-        return tuple(tuple(b) for b in part)
-    return None
-
-
 def max_fusion_partition(graph: ir.OpGraph) -> Tuple[Tuple[int, ...], ...]:
     """Greedy max fusion: fuse every non-breakpoint edge whose fusion keeps
     the partition legal (the reference's 'fuse all' GA seed,
@@ -358,54 +312,43 @@ def traffic_bytes(
     return total
 
 
-GROUPED_G = 16   # stripe-group size of the grouped kernel (measured best)
-
-
-def vmem_bytes(tile: TileConfig, feat_width: int, dtype_bytes: int = 4) -> int:
-    """Double-buffered VMEM footprint of one Pallas aggregation block: the
-    x column block, the output row block, and the edge-tile arrays (the
-    reference's buffer constraint W + (N+E)*2 < 2MB, compiler.py:67-131;
-    the TPU budget is VMEM, default checked against ~16MB).  The grouped
-    path keeps a group*R output stripe and G*ET-slot one-hot operands
-    resident."""
-    fb = min(feat_width, 512)
-    if tile.path == PATH_GROUPED:
-        g = GROUPED_G
-        o_blk = g * tile.block_rows * fb * 4
-        x_blk = tile.block_cols * fb * dtype_bytes
-        slots = g * tile.tile_edges
-        onehot = slots * (tile.block_rows + tile.block_cols) * dtype_bytes
-        edges = slots * (3 * 4 + dtype_bytes)
-        return o_blk + 2 * (x_blk + edges) + onehot + slots * fb * 4
+def buffer_bytes(tile: TileConfig, feat_width: int,
+                 dtype_bytes: int = 4) -> int:
+    """Double-buffered on-chip footprint of one aggregation tile in the
+    reference's buffer model: the x column block, the output row block,
+    and the edge arrays (the reference's constraint W + (N+E)*2 < 2MB,
+    compiler.py:67-131)."""
     x_blk = tile.block_cols * feat_width * dtype_bytes
     o_blk = tile.block_rows * feat_width * 4          # f32 accumulator
     edges = tile.tile_edges * (3 * 4 + dtype_bytes)   # src/dst/eid + weight
-    onehot = tile.tile_edges * max(tile.block_rows, tile.block_cols) * dtype_bytes
-    return 2 * (x_blk + edges) + o_blk + 2 * onehot
+    return 2 * (x_blk + edges) + o_blk
 
 
 def tile_is_feasible(
     tile: TileConfig,
     feat_width: int,
-    vmem_budget: Optional[int] = None,
+    buffer_budget: Optional[int] = None,
     dtype_bytes: int = 4,
 ) -> bool:
-    """VMEM feasibility under the hardware config: total budget plus the
+    """Buffer feasibility under the hardware config: total budget plus the
     per-region caps (node / edge buffer fractions — the reference's
-    flexible-buffer W/N/E split, compiler.py:73-75,95-99)."""
+    flexible-buffer W/N/E split, compiler.py:73-75,95-99).  With no budget
+    configured (the default) every tile is feasible."""
     from ..hwconfig import load_hw_config
     cfg = load_hw_config()
-    budget = vmem_budget if vmem_budget is not None else cfg.vmem_budget_bytes
-    if vmem_bytes(tile, feat_width, dtype_bytes) > budget:
+    budget = (buffer_budget if buffer_budget is not None
+              else cfg.buffer_budget_bytes)
+    if budget is None:
+        return True
+    if buffer_bytes(tile, feat_width, dtype_bytes) > budget:
         return False
-    _, node_frac, edge_frac = cfg.vmem_regions
+    _, node_frac, edge_frac = cfg.buffer_regions
     x_blk = tile.block_cols * feat_width * dtype_bytes
     o_blk = tile.block_rows * feat_width * 4
     edges = tile.tile_edges * (3 * 4 + dtype_bytes)
-    onehot = tile.tile_edges * max(tile.block_rows, tile.block_cols) * dtype_bytes
     if 2 * x_blk + o_blk > max(node_frac, 0.01) * budget * 2:
         return False
-    if 2 * edges + 2 * onehot > max(edge_frac, 0.01) * budget * 2:
+    if 2 * edges > max(edge_frac, 0.01) * budget * 2:
         return False
     return True
 
@@ -415,11 +358,11 @@ def pattern_partition(graph: ir.OpGraph) -> Optional[Tuple[Tuple[int, ...], ...]
 
     The chain crosses two gather->scatter breakpoint edges, which the
     reference can never fuse (compiler.py:472-473 — its buffer model needs
-    the node-aligned intermediates materialised).  The online-softmax Pallas
-    kernel CAN cross them: per-row max/den/num stay in VMEM for the whole
-    row stripe, so the 'materialise + re-scatter' the breakpoint rule guards
-    against never happens.  This is the fusion the simulated hardware could
-    not express — and the main source of the TPU win."""
+    the node-aligned intermediates materialised).  The CSR attention kernel
+    CAN cross them: under the shift bound, each row's num/den stay in
+    registers for the whole walk of its in-edges, so the 'materialise +
+    re-scatter' the breakpoint rule guards against never happens.  This is
+    the fusion the simulated hardware could not express."""
     from ..ops.gat import find_gat_chain
     plan = find_gat_chain(graph)
     if plan is None:
@@ -433,49 +376,15 @@ def pattern_partition(graph: ir.OpGraph) -> Optional[Tuple[Tuple[int, ...], ...]
     return tuple(tuple(b) for b in _order_blocks(graph, blocks))
 
 
-def layer_partition(graph: ir.OpGraph) -> Optional[Tuple[Tuple[int, ...], ...]]:
-    """Whole-layer super-block: the complete GAT layer (projection MMs +
-    attention chain + activation) as ONE block for the mega-kernel
-    (ops/gat.py:gat_layer) — layer latency is op-count bound on TPU, so
-    collapsing the layer to a single pallas call is the deepest fusion."""
-    from ..ops.gat import match_gat_layer
-    all_ops = [op.op_id for op in graph.ops]
-    plan = match_gat_layer(graph, all_ops)
-    if plan is not None:
-        return (tuple(sorted(all_ops)),)
-    chain_part = pattern_partition(graph)
-    if chain_part is None:
-        return None
-    # try chain + MMs + sf merged, leaving any truly external ops out
-    from ..ops.gat import find_gat_chain
-    chain = find_gat_chain(graph)
-    cand = set(chain.ops)
-    for op in graph.ops:
-        if op.op_id in cand:
-            continue
-        if op.kind == ir.APPLY_NODE and op.compute in (ir.MM, ir.SF):
-            cand.add(op.op_id)
-    plan = match_gat_layer(graph, sorted(cand))
-    if plan is None:
-        return None
-    rest = [o for o in graph.topo_order() if o not in plan.ops]
-    blocks = [[o] for o in rest] + [sorted(plan.ops)]
-    return tuple(tuple(b) for b in _order_blocks(graph, blocks))
-
-
 def partition_is_legal_with_patterns(
     graph: ir.OpGraph, blocks: Sequence[Sequence[int]]
 ) -> bool:
     """Partition legality with the kernel-pattern exemption: a block that
     exactly matches a fused-kernel pattern may contain breakpoint edges."""
-    from ..ops.gat import match_gat_block, match_gat_layer
-    from ..ops.pairagg import match_pair_agg
+    from ..ops.gat import match_gat_block
     if ir.partition_is_legal(graph, blocks):
         return True
-    exempt = [b for b in blocks
-              if match_gat_block(graph, b) is not None
-              or match_gat_layer(graph, b) is not None
-              or match_pair_agg(graph, b) is not None]
+    exempt = [b for b in blocks if match_gat_block(graph, b) is not None]
     if not exempt:
         return False
     # re-check with exempt blocks collapsed to opaque nodes: internal edges

@@ -5,9 +5,8 @@ instruction stream per layer, ``vTCAD/code/start.py:36-58``); at serving
 scale the per-dispatch fixed cost (grid setup, narrow-operand padding)
 dominates small graphs.  Batching B graphs as one block-diagonal adjacency
 amortises that cost: node ids of graph i are offset by ``sum(n_j, j<i)``,
-the union COO feeds the SAME tile/hybrid pipeline as a single graph (the
-block-diagonal structure is just locality the tiler already exploits), and
-per-graph outputs are recovered by slicing or segment readout.
+the union COO feeds the same CSR kernels as a single graph (a
+block-diagonal adjacency is just more rows), and per-graph outputs are recovered by slicing or segment readout.
 
 All shapes stay static for a fixed batch spec: pad the batch with empty
 slots up to ``max_graphs`` / per-graph node caps when serving variable

@@ -79,7 +79,7 @@ def synthetic_coo(n_node: int, n_edge: int, seed: int = 0, alpha: float = 0.8,
     have power-law OUT-degree too (a few prolific posters produce most
     cross-subreddit edges); the uniform default is the adversarial
     no-sender-locality case, under which every shard pair's halo saturates
-    at full-batch density (results/reddit_partition.json plan notes)."""
+    at full-batch density (PartitionedGraph.comm_report)."""
     rng = np.random.default_rng(seed)
     # Zipf-like node popularity for destinations, milder for sources
     p = (np.arange(1, n_node + 1, dtype=np.float64)) ** (-alpha)
@@ -177,3 +177,32 @@ def load_dataset(
         train_mask=train_mask, val_mask=val_mask, test_mask=test_mask,
         n_class=n_class, synthetic=synthetic,
     )
+
+
+def community_dataset(name: str, *, n_edge: Optional[int] = None,
+                      seed: int = 1, communities: int = 1000,
+                      p_in: float = 0.7) -> Dataset:
+    """A synthetic dataset at the published dimensions of ``name``
+    (:data:`DATASET_STATS`) drawn by :func:`synthetic_coo` with planted
+    communities — the benchmark graph of full-batch training at Reddit
+    scale (``communities=1000, p_in=0.7``, seed 1).  ``n_edge`` cuts the
+    edge count (the node, feature and class counts stay published).
+    Self loops and the symmetric normalisation are added as in
+    :func:`load_dataset`."""
+    n_node, e_pub, n_feat, n_class = DATASET_STATS[name]
+    s, r, _ = synthetic_coo(n_node, n_edge or e_pub, seed,
+                            communities=communities, p_in=p_in)
+    rng = np.random.default_rng(seed + 1)
+    x, y = _planted_labels(rng, n_node, n_class, s, r, n_feat)
+    idx = rng.permutation(n_node)
+    n_tr = max(n_class * 20, n_node // 10)
+    n_va = max(n_node // 10, 1)
+    masks = [np.zeros(n_node, bool) for _ in range(3)]
+    masks[0][idx[:n_tr]] = True
+    masks[1][idx[n_tr:n_tr + n_va]] = True
+    masks[2][idx[n_tr + n_va:]] = True
+    g = build_host_graph(s, r, n_node, add_self_loops=True,
+                         symmetric_norm=True)
+    return Dataset(name=name, host_graph=g, x=x, y=y, train_mask=masks[0],
+                   val_mask=masks[1], test_mask=masks[2], n_class=n_class,
+                   synthetic=True)

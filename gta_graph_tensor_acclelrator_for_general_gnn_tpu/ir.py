@@ -6,7 +6,7 @@ The reference expresses every GNN as a DAG of four primitive ops —
 C = column-wise / by source) (schema: ``template/op_template.yaml:1-19``,
 generator: ``vTCAD/GraphOP/genGraphOP.py:4-25`` in the reference).  The
 reference lowers this DAG to a simulated ISA; here the same IR lowers to a
-traced JAX function, and fused sub-DAGs lower to Pallas TPU kernels.
+traced JAX function, and fused sub-DAGs lower to the CSR Pallas kernels.
 
 Extensions over the reference (documented deltas, needed for *numerically
 correct* execution rather than byte-count simulation):
@@ -197,8 +197,8 @@ def is_breakpoint(producer: Op, consumer: Op) -> bool:
     gather -> scatter edge is a breakpoint (the intermediate is node-aligned
     and must round-trip), and a scatter whose ORDER differs from its
     producer's ORDER is a breakpoint (a data re-layout between by-source and
-    by-destination edge order).  On TPU the same boundaries are where a fused
-    Pallas kernel would need a full re-sort of the edge stream.
+    by-destination edge order).  On a real device the same boundaries are
+    where a fused kernel would need a full re-sort of the edge stream.
     """
     if producer.kind == GATHER and consumer.kind == SCATTER:
         return True

@@ -18,8 +18,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
-import yaml
-
 from . import ir
 
 _KIND_TO_REF = {ir.SCATTER: "scatter", ir.GATHER: "gather",
@@ -69,6 +67,7 @@ def to_yaml(graph: ir.OpGraph, n_node: int = 0, n_edge: int = 0) -> str:
                 extra["weight"] = list(extra["weight"])
             d["EXTRA"] = extra
         ops_out.append(d)
+    import yaml   # optional dependency, needed only to serialise
     return yaml.safe_dump(ops_out, sort_keys=False)
 
 
@@ -79,6 +78,7 @@ def from_yaml(text: str, name: str = "imported",
     Files without EXTRA (plain reference files) get synthesised weight specs
     for MM ops (in/out widths from the byte sizes) and default SF kinds.
     """
+    import yaml   # optional dependency, needed only to parse
     raw = yaml.safe_load(text)
     ops: List[ir.Op] = []
     for d in raw:

@@ -64,7 +64,8 @@ def gin(params, x, A_cnt, tag="l0", eps=0.1, final_sf="relu"):
 
 
 def gat(params, x, A_cnt, tag="l0", heads=4, final_sf="relu", slope=0.2):
-    """Multi-head GAT with stable softmax over incoming edges (A_cnt binary)."""
+    """Multi-head GAT with stable softmax over incoming edges; a multi-edge
+    counts once per copy (A_cnt multiplicities), as in the edge-list IR."""
     W = params[f"gat_{tag}_w"]
     A1 = params[f"gat_{tag}_asrc"]
     A2 = params[f"gat_{tag}_adst"]
@@ -81,7 +82,7 @@ def gat(params, x, A_cnt, tag="l0", heads=4, final_sf="relu", slope=0.2):
         e = np.where(adj, e, -np.inf)
         m = e.max(axis=1, keepdims=True)
         m = np.where(np.isfinite(m), m, 0.0)
-        ex = np.where(adj, np.exp(e - m), 0.0)
+        ex = np.where(adj, np.exp(e - m), 0.0) * A_cnt
         denom = ex.sum(axis=1, keepdims=True)
         alpha = np.divide(ex, denom, out=np.zeros_like(ex), where=denom > 0)
         out[:, head * D:(head + 1) * D] = alpha @ h[:, head * D:(head + 1) * D]

@@ -34,22 +34,24 @@ class Model:
         return params
 
     def make_apply(self, compute_dtype=None, schedules=None, host_graph=None,
-                   x_host=None, build_transpose=False):
+                   build_transpose=False):
         """Forward over the layer stack.
 
         ``schedules``: optional per-layer :class:`~..compiler.schedule.Schedule`
         (or one schedule reused for all layers) — layers then lower through
-        the fusion compiler (Pallas kernels / streaming per the schedule) and
-        remain trainable (the fused attention kernel carries a custom VJP).
-        Requires ``host_graph`` for tile construction.
+        the fusion compiler (CSR kernels / streaming per the schedule) and
+        remain trainable (the kernels carry custom VJPs).  Requires
+        ``host_graph`` for the CSR builds.
 
-        ``x_host``: the dataset features (numpy) — enables the sparse-input
-        first-layer MM when density < 0.5 (isSinput; only the FIRST layer
-        sees X, so only it gets the flag).  Bakes X's nonzeros: use for
-        training / fixed-feature runs only.
+        The returned ``apply(params, g, x)`` carries ``apply.captures`` (the
+        layers' graph data) and ``apply.inner(params, g, x, captures)``, so
+        a caller can pass the graph data as jit ARGUMENTS instead of
+        embedding GB-scale arrays in the program as constants.
         """
         if schedules is None:
             fns = [L.lower(g, compute_dtype) for g in self.layers]
+            caps: tuple = ()
+            inners = [None] * len(fns)
         else:
             from ..compiler.fusion import lower_schedule
             if not isinstance(schedules, (list, tuple)):
@@ -57,17 +59,24 @@ class Model:
             assert host_graph is not None, "schedules need host_graph"
             shared_cache: dict = {}
             fns = [lower_schedule(g, s, host_graph, compute_dtype,
-                                  x_host=x_host if i == 0 else None,
                                   build_transpose=build_transpose,
-                                  tile_cache=shared_cache)
-                   for i, (g, s) in enumerate(zip(self.layers, schedules))]
+                                  graph_cache=shared_cache)
+                   for g, s in zip(self.layers, schedules)]
+            caps = tuple(f.captures for f in fns)
+            inners = [f.inner for f in fns]
 
-        def apply(params, g: GraphTensor, x: jax.Array) -> jax.Array:
+        def inner(params, g: GraphTensor, x: jax.Array, captures):
             h = x
-            for fn in fns:
-                h = fn(params, g, h)
+            for i, fn in enumerate(fns):
+                h = (fn(params, g, h) if inners[i] is None
+                     else inners[i](params, g, h, captures[i]))
             return h
 
+        def apply(params, g: GraphTensor, x: jax.Array) -> jax.Array:
+            return inner(params, g, x, caps)
+
+        apply.inner = inner
+        apply.captures = caps
         return apply
 
 

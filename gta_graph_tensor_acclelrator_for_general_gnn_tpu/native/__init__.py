@@ -1,8 +1,8 @@
 """ctypes loader for the native preprocessing library.
 
 The .so is never committed (it is built with -march=native, so a foreign
-binary could SIGILL); it is compiled from ``tiler.cpp`` with make on first
-import, then validated by a tiny self-test against the numpy reference
+binary could SIGILL); it is compiled from the ``*.cpp`` sources with make
+on first import, then validated by a tiny self-test against the numpy reference
 before ``HAVE_NATIVE`` is set.  Everything falls back to the numpy paths
 when native code is unavailable or fails the self-test."""
 from __future__ import annotations
@@ -33,7 +33,7 @@ def _load():
     if _lib is not None:
         return _lib
     srcs = [os.path.join(_DIR, f)
-            for f in ("tiler.cpp", "sampler.cpp", "cluster.cpp")]
+            for f in ("graphprep.cpp", "sampler.cpp", "cluster.cpp")]
     if (not os.path.exists(_SO)
             or any(os.path.getmtime(_SO) < os.path.getmtime(s)
                    for s in srcs)):
@@ -44,13 +44,6 @@ def _load():
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-    lib.gta_block_count.argtypes = [
-        i32p, i32p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int32, ctypes.c_int32, i64p]
-    lib.gta_tile_fill.argtypes = [
-        i32p, i32p, f32p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-        i64p, i64p, i32p, i32p, i32p, f32p]
     lib.gta_sort_by_receiver.argtypes = [
         i32p, ctypes.c_int64, ctypes.c_int32, i64p, i64p]
     lib.gta_degrees.argtypes = [i32p, i32p, ctypes.c_int64, f64p, f64p]
@@ -96,46 +89,6 @@ def _validate_ids(n_node, *arrays):
             raise ValueError(
                 f"node id out of range [0, {n_node}): "
                 f"min={a.min()}, max={a.max()}")
-
-
-def tile_edges_native(senders, receivers, weight, n_row_blocks, n_col_blocks,
-                      block_rows, block_cols, tile_edges, e_pad):
-    """Native two-pass tiling.  Returns (tile_rb, tile_cb, src_l, dst_l,
-    eid, w) for the data tiles (row-block sorted), or None if unavailable.
-    Output matches the numpy path exactly (stable within-block edge order).
-    """
-    lib = _load()
-    B = n_row_blocks * n_col_blocks
-    if lib is None or B > (1 << 26):
-        return None
-    _validate_ids(n_row_blocks * block_rows, np.asarray(receivers))
-    _validate_ids(n_col_blocks * block_cols, np.asarray(senders))
-    ne = len(senders)
-    senders = np.ascontiguousarray(senders, np.int32)
-    receivers = np.ascontiguousarray(receivers, np.int32)
-    weight = np.ascontiguousarray(weight, np.float32)
-    nnz = np.zeros(B, np.int64)
-    lib.gta_block_count(senders, receivers, ne, n_col_blocks,
-                        block_rows, block_cols, nnz)
-    tiles_per_block = -(-nnz // tile_edges)
-    base = np.concatenate([[0], np.cumsum(tiles_per_block)[:-1]])
-    T = int(tiles_per_block.sum())
-    src_l = np.full(T * tile_edges, block_cols, np.int32)
-    dst_l = np.full(T * tile_edges, block_rows, np.int32)
-    eid = np.full(T * tile_edges, max(e_pad - 1, 0), np.int32)
-    w = np.zeros(T * tile_edges, np.float32)
-    cursor = np.zeros(B, np.int64)
-    lib.gta_tile_fill(senders, receivers, weight, ne, n_col_blocks,
-                      block_rows, block_cols, tile_edges, base, cursor,
-                      src_l, dst_l, eid, w)
-    nonempty = np.flatnonzero(tiles_per_block)
-    tile_rb = np.repeat((nonempty // n_col_blocks).astype(np.int32),
-                        tiles_per_block[nonempty])
-    tile_cb = np.repeat((nonempty % n_col_blocks).astype(np.int32),
-                        tiles_per_block[nonempty])
-    shape = (T, tile_edges)
-    return (tile_rb, tile_cb, src_l.reshape(shape), dst_l.reshape(shape),
-            eid.reshape(shape), w.reshape(shape))
 
 
 def sort_by_receiver_native(receivers, n_node, _checked=True):

@@ -1,8 +1,8 @@
 // Asynchronous label-propagation community detection over a symmetrized
-// CSR adjacency.  This is the label-free clustering pass the block-sparse
-// execution path needs on REAL graphs: the hybrid density split earns its
-// dense blocks from community locality (results/SUMMARY.md "Full Reddit"),
-// and on real data nobody hands us the subreddit labels — the reference's
+// CSR adjacency.  This is the label-free clustering pass that gives REAL
+// graphs community locality (a relabelled node order keeps a community's
+// gathered rows close together in cache and shrinks partition halos), and
+// on real data nobody hands us the subreddit labels — the reference's
 // pipeline likewise assumes a pre-clustered node order for its per-tile
 // nnz statistics (reference: FinalVersion For Paper/preprocessing.py,
 // vTCAD/code/compiler.py:504 maxlist).

@@ -70,6 +70,23 @@ def spmm_chunked(
     return acc[: g.n_node]
 
 
+@jax.custom_jvp
+def _normalise(num: jax.Array, den: jax.Array) -> jax.Array:
+    """num / den with the derivative (dnum - out * dden) / den.  Autodiff of
+    the plain quotient forms 1 / den**2, which overflows float32 for the
+    tiny den of rows whose logits all sit far below the shift bound (den
+    < ~1e-19), and inf times their underflowed p then gives NaN."""
+    return num / den
+
+
+@_normalise.defjvp
+def _normalise_jvp(primals, tangents):
+    num, den = primals
+    dnum, dden = tangents
+    out = num / den
+    return out, (dnum - out * dden) / den
+
+
 def gat_chunked(
     g: GraphTensor,
     h_src: jax.Array,
@@ -131,5 +148,5 @@ def gat_chunked(
     num, _ = jax.lax.scan(
         num_body, jnp.zeros((g.n_node + 1, HD), jnp.float32),
         (send, recv, mask))
-    out = num / jnp.repeat(jnp.maximum(den, 1e-20), D, axis=1)
+    out = _normalise(num, jnp.repeat(jnp.maximum(den, 1e-20), D, axis=1))
     return out[: g.n_node]

@@ -1,49 +1,48 @@
-"""Fused GAT attention: one Pallas kernel for the whole edge-softmax block.
+"""GAT attention: the whole edge-softmax aggregation as one Pallas kernel,
+compiled for the GPU through Pallas' Triton route.
 
 The reference expresses GAT attention as 14 ops (scatters, add, LeakyReLU,
 segment-max, sub, exp, segment-sum, div, mul, segment-sum —
-vTCAD/GraphOP/genGraphOP.py:47-77) and fuses pairs/triples of the resulting
-instructions (interpreter.py:575-719).  On TPU the winning schedule fuses the
-*entire* block: an online-softmax (flash-attention-style) kernel that keeps
-every per-edge intermediate in VMEM — per-edge logits, exp weights, and
-normalised alphas never touch HBM.
+vTCAD/GraphOP/genGraphOP.py:47-77).  XLA's plain version materialises
+several [E, H] and [E, HD] edge tensors.  The kernel walks each
+destination row's in-edges once, with the same CSR traversal as the SpMM
+(ops/spmm.py), and keeps every per-edge quantity in registers:
 
-Per destination row block (tiles of one row stripe arrive consecutively —
-TiledGraph invariant), with one [R, HD+H] num‖den accumulator in VMEM
-scratch and the shift-bound softmax (per-row constant bound instead of a
-running max — softmax is shift-invariant and leaky_relu monotone, so
-b[r] = leaky(max_s a_src + a_dst[r]) dominates every logit of row r).
+    grid (piece p of row r, head k):
+        num[DB] = 0; den = 0                          (float32)
+        for each chunk of K edges of piece p (the last one masked):
+            ids = senders[chunk]
+            z   = leaky(a_src[ids, k] + a_dst[r, k])
+            pz  = exp(z - b[r, k])                    (<= 1)
+            num += sum_e pz_e * h[ids_e, head k columns]
+            den += sum_e pz_e
+        out[p] = num; den_out[p, k] = den
 
-MXU pass structure (v2): narrow operands (width < 128 lanes) cost a full
-128-lane MXU pass, so per-edge quantities are packed so the tile does
-exactly THREE wide passes — measured ~1.7x over the 5-pass v1:
-
-    for each edge tile (rb, cb):
-        [hs‖a_s] = onehot(src) @ [H‖A_src]_cb    # [ET, HD+H]  pass 1 (K=C)
-        a_d      = onehot(dst) @ Adst_rb         # [ET, H]     pass 2 (K=R)
-        p        = exp(leaky(a_s + a_d) - b)     # [ET, H] VPU, <= 1
-        acc     += onehot(dst)^T @ [(p@B)*hs ‖ p]  #           pass 3 (K=ET)
-    out_rb = acc_num / max(acc_den, eps)         # B: head->feat expand
-
-a_src is always taken as *values* [N, H]: when the op graph defines it as a
-linear map of h the caller computes the tiny [N,HD]@[HD,H] matmul in XLA
-(free next to the gathers) — packing it into the pass-1 operand costs
-nothing, and the bound adapts to the input scale (no static-shift
-saturation).
+Shift bound: b[r] = leaky(max_s a_src + a_dst[r]) dominates every logit of
+row r (softmax is shift-invariant and leaky_relu monotone), so one pass
+needs no running-max rescale, and partials of one row taken in several
+pieces — or on several devices (parallel/dist.py) — add exactly.  The
+per-row normalisation num / den is one XLA elementwise pass.
 
 Bound domain: the shift is the GLOBAL per-head max of a_src, so a row whose
 incident sources all sit more than ~85 below that max (f32 exp underflow)
 collapses to zero attention.  The gap equals the spread of a_src across the
-graph — O(1..10) for trained GATs; inputs needing >80 spread should use the
-XLA path (exact per-row segment max, the reference's gather-MAX op).
+graph — O(1..10) for trained GATs; :func:`gat_shift_gap` measures it, and
+inputs needing more should use the XLA path (exact per-row segment max, the
+reference's gather-MAX op).
 
-The mathematically identical result is what both reference GAT variants
-compute (normalise-on-edges, genGraphOP.py:47-62, and the aggregate-num/den
-'trans' variant :64-77), so one kernel serves both op-graph shapes.
+Both reference GAT variants (normalise-on-edges, genGraphOP.py:47-62, and
+the aggregate-num/den 'trans' variant :64-77) compute this result, so one
+kernel serves both op-graph shapes.
 
-Training: gradients flow through an XLA recompute (custom_vjp) — the forward
-runs the fused kernel, the backward differentiates the segment-op reference
-formulation.
+Gradient: a custom VJP in XLA at [E, H] width (never [E, HD]):
+
+    α_e     = pz_e / den[dst]           (the forward's own weights)
+    t_e     = <ḡ[dst], h[src]> per head (chunked over edges)
+    dz_e    = α_e (t_e − <ḡ[dst], out[dst]>) · leaky'(a_s[src] + a_d[dst])
+    da_dst  = Σ_{dst} dz ; da_src = Σ_{src} dz
+    dh[s]   = Σ_{src = s} α_e ḡ[dst]    (the CSR SpMM kernel on the
+                                         transposed graph, per-head α)
 """
 from __future__ import annotations
 
@@ -53,742 +52,232 @@ from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
-import numpy as np
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .. import ir
-from ..graph import TiledGraph
+from ..graph import CsrGraph
+from .backend import interpret_mode, pad_rows, pow2_at_least, zero_cotangent
+from .spmm import Launch, combine_pieces, pad_heads, spmm_raw, unpad_heads
 
 NEG = -1e30
 
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _gat_kernel(
-    rb_ref, cb_ref,
-    src_ref, dst_ref, wgt_ref,
-    *refs,
-    R: int, C: int, ET: int, H: int, HD: int, slope: float,
-    normalize: bool, precision, derive: bool = False,
-):
-    """One edge tile of the softmax-aggregate (3-wide-pass structure, see
-    module docstring).
-
-    The tile weight stream is the per-edge softmax-term MULTIPLICITY
-    (1 for plain edges, 0 on padding): every exp term is scaled by it.
-    Attention is linear in edge multiplicity, so hybrid_graph's int8
-    saturation guard merges >127-fold duplicate pairs into one tail slot
-    carrying the excess count — exact, without 5000-copy tail blowups.
-
-    Numerical scheme: softmax is shift-invariant per destination row, so
-    instead of tracking the running row max (flash-attention style, which
-    needs lane-dim reductions Mosaic dislikes), subtract the *constant* row
-    bound  b[r] = leaky_relu(max_s a_src[s] + a_dst[r])  >= every logit of
-    row r (leaky_relu is monotone).  exp(e - b) <= 1 — no overflow, no
-    rescaling, num/den accumulate across the row stripe unmodified.
-
-    ``derive=True`` (width-128 repack): the pass-1 gather reads h ALONE
-    (HD lanes, one 128-lane MXU chunk at HD=128 instead of two for the
-    [h ‖ a_src] pack) and a_src is derived in-kernel by the tiny
-    [ET, HD] @ [HD, H] matmul — a_src is a linear map of h, so the extra
-    matmul costs ~ET*HD*H MACs vs the ET*C*128 saved on the gather.
-    """
-    if derive:
-        hcat_ref, w_ref, adst_ref, msrc_ref, o_ref, acc_ref = refs
-    else:
-        hcat_ref, adst_ref, msrc_ref, o_ref, acc_ref = refs
-    t = pl.program_id(0)
-    T = pl.num_programs(0)
-    prev_rb = jnp.where(t == 0, -1, rb_ref[jnp.maximum(t - 1, 0)])
-    next_rb = jnp.where(t == T - 1, -1, rb_ref[jnp.minimum(t + 1, T - 1)])
-
-    @pl.when(rb_ref[t] != prev_rb)
-    def _reset():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    # head -> feature expansion: B[h, f] = 1 iff f // (HD//H) == h, as a
-    # HIGHEST-precision 0/1 matmul.  The WIDE kernel keeps the dot: here
-    # the expansion would be a LANE-axis tile-repeat, which Mosaic lowers
-    # as a slow lane interleave (measured 2x the whole Cora chain —
-    # scripts/gat_pick_ab probe r4); the SUBLANE repeat only pays in the
-    # transposed kernels (_gat_kernel_t / _gat_grouped_kernel_t).
-    # head_dim == 1 makes B the identity — skip both expansion matmuls.
-    if HD != H:
-        brow = jax.lax.broadcasted_iota(jnp.int32, (H, HD), 0)
-        bcol = jax.lax.broadcasted_iota(jnp.int32, (H, HD), 1) // (HD // H)
-        B = (brow == bcol).astype(jnp.float32)
-
-    # cb == -1 marks DEAD padding tiles (shard_tiles skew padding): skip
-    # all three matmul passes; the x-panel index map clamps to block 0
-    @pl.when(cb_ref[t] >= 0)
-    def _compute():
-        src = src_ref[0, 0, :].astype(jnp.int32)              # [ET]
-        dst = dst_ref[0, 0, :].astype(jnp.int32)              # [ET]
-        dt = hcat_ref.dtype
-
-        # two one-hot builds total (VPU compares are a first-order cost):
-        # oh_src serves the packed src gather; oh_dst serves the dst gather
-        # AND the scatter-reduction (transposed-contraction dot_general).
-        cols = jax.lax.broadcasted_iota(jnp.int32, (ET, C), 1)
-        oh_src = (src[:, None] == cols).astype(dt)            # [ET, C]
-        rows_er = jax.lax.broadcasted_iota(jnp.int32, (ET, R), 1)
-        oh_dst = (dst[:, None] == rows_er).astype(dt)         # [ET, R]
-
-        if derive:
-            # pass 1: gather h rows only; derive a_src = hs @ W in-kernel
-            hs = jnp.dot(oh_src, hcat_ref[:],
-                         preferred_element_type=jnp.float32,
-                         precision=precision)                 # [ET, HD]
-            a_s = jnp.dot(hs.astype(dt), w_ref[:],
-                          preferred_element_type=jnp.float32,
-                          precision=precision)                # [ET, H]
-        else:
-            # pass 1: packed gather of [h ‖ a_src] rows
-            g = jnp.dot(oh_src, hcat_ref[:],
-                        preferred_element_type=jnp.float32,
-                        precision=precision)                  # [ET, HD+H]
-            hs = g[:, :HD]
-            a_s = g[:, HD:]
-        # pass 2: a_dst gather
-        a_d = jnp.dot(oh_dst, adst_ref[:],
-                      preferred_element_type=jnp.float32,
-                      precision=precision)                    # [ET, H]
-
-        def leaky(v):
-            return jnp.where(v >= 0, v, slope * v)
-
-        e = leaky(a_s + a_d)
-        bound = leaky(msrc_ref[0, :][None, :] + a_d)   # [ET, H] (row-const)
-        # full-shape mask: a [ET, 1] bool broadcast against the narrow
-        # [ET, H] lane dim crashes Mosaic (bisected on v5e);
-        # broadcast_in_dim is fine
-        dmat = jax.lax.broadcast_in_dim(dst, (ET, H), (0,))
-        p = jnp.where(dmat < R, jnp.exp(jnp.minimum(e - bound, 60.0)), 0.0)
-        wmat = jax.lax.broadcast_in_dim(
-            wgt_ref[0, 0, :].astype(jnp.float32), (ET, H), (0,))
-        p = p * wmat                                   # term multiplicity
-
-        if HD == H:
-            p_full = p
-        else:
-            p_full = jnp.dot(p, B, preferred_element_type=jnp.float32,
-                             precision=jax.lax.Precision.HIGHEST)  # [ET, HD]
-
-        # pass 3: ONE transposed-contraction scatter of [num ‖ den] —
-        # operands cast to the input dtype (bf16 keeps the MXU single-pass;
-        # accumulation stays f32 via preferred_element_type)
-        v = jnp.concatenate([p_full * hs, p], axis=1).astype(dt)
-        acc_ref[:] += jax.lax.dot_general(
-            oh_dst, v, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=precision)
-
-    # publish once per row stripe (last tile of the stripe)
-    @pl.when(next_rb != rb_ref[t])
-    def _publish():
-        if normalize:
-            den = jnp.maximum(acc_ref[:, HD:], 1e-20)
-            if HD == H:
-                den_full = den
-            else:
-                den_full = jnp.dot(den, B,
-                                   preferred_element_type=jnp.float32,
-                                   precision=jax.lax.Precision.HIGHEST)
-            o_ref[:] = acc_ref[:, :HD] / den_full
-        else:
-            # hybrid mode: emit raw [num ‖ den] partials (the dense-block
-            # kernel's partials add to these before the final divide)
-            o_ref[:] = acc_ref[:]
+# Chosen by scripts/kernel_timing.py --sweep at the Reddit shapes (H=4,
+# width 128) on an H100 (400 W limit), over the same K x warps pairs as the
+# SpMM (PERF.md): 128 edges per chunk with 2 warps, within 9% of the
+# fastest pair (K=64, one warp) and clear of one warp's collapse in the
+# SpMM.  One program covers one head's 32 columns, so it takes longer
+# chunks than the SpMM.
+GAT_LAUNCH = Launch(edge_chunk=128, num_warps=2)
 
 
-def _gat_kernel_t(
-    rb_ref, cb_ref,
-    src_ref, dst_ref, wgt_ref,
-    *refs,
-    R: int, C: int, ET: int, H: int, HD: int, slope: float,
-    normalize: bool, precision, derive: bool = False,
-):
-    """TRANSPOSED-dataflow edge tile for NARROW feature widths (HD+H small).
-
-    All per-edge arrays live as [feat, edges]: the edge axis rides the
-    128-lane dimension, so (a) every matmul has M = HD+H (or H) instead of
-    M = ET — MXU cost ~ M*ceil(K/128)*ceil(N/128), a ~2x cut when
-    HD+H << ET; (b) the VPU logit chain runs at full lane utilisation
-    (the [ET, 16] orientation wastes 7/8 lanes); (c) the num‖den merge is a
-    SUBLANE concat (row stacking) instead of a lane shuffle.
-
-        g_t   = [h‖a_src]_cb^T @ onehot_src^T      # [HD+H, ET]
-        a_d_t = adst_rb^T @ onehot_dst^T           # [H, ET]
-        p_t   = exp(leaky(a_s_t + a_d_t) - b)      # [H, ET]
-        acc_t += [p_full_t * hs_t ; p_t] @ onehot_dst  # [HD+H, R]
-
-    ``derive=True``: the gather operand is h alone ([HD, C] — exactly one
-    128-sublane chunk at HD=128 instead of the 132->256 pad of the packed
-    [h ‖ a_src]) and a_src is derived in-kernel from w_asrc, the same
-    width-128 repack as the wide kernel.
-    """
-    if derive:
-        hcat_ref, w_ref, adst_ref, msrc_ref, o_ref, acc_ref = refs
-    else:
-        hcat_ref, adst_ref, msrc_ref, o_ref, acc_ref = refs
-    t = pl.program_id(0)
-    T = pl.num_programs(0)
-    prev_rb = jnp.where(t == 0, -1, rb_ref[jnp.maximum(t - 1, 0)])
-    next_rb = jnp.where(t == T - 1, -1, rb_ref[jnp.minimum(t + 1, T - 1)])
-
-    @pl.when(rb_ref[t] != prev_rb)
-    def _reset():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    # cb == -1 marks DEAD padding tiles (shard_tiles skew padding): skip
-    # all matmul passes; the x-panel index map clamps to block 0
-    @pl.when(cb_ref[t] >= 0)
-    def _compute():
-        src = src_ref[0, 0, :].astype(jnp.int32)              # [ET]
-        dst = dst_ref[0, 0, :].astype(jnp.int32)              # [ET]
-        dt = hcat_ref.dtype
-
-        src_b = jax.lax.broadcast_in_dim(src, (C, ET), (1,))
-        oh_src_t = (src_b == jax.lax.broadcasted_iota(
-            jnp.int32, (C, ET), 0)).astype(dt)                # [C, ET]
-        dst_b = jax.lax.broadcast_in_dim(dst, (R, ET), (1,))
-        oh_dst_t = (dst_b == jax.lax.broadcasted_iota(
-            jnp.int32, (R, ET), 0)).astype(dt)                # [R, ET]
-
-        if derive:
-            hs = jnp.dot(hcat_ref[:], oh_src_t,
-                         preferred_element_type=jnp.float32,
-                         precision=precision)                 # [HD, ET]
-            # a_src rows = w^T @ hs  (tiny: H sublanes)
-            a_s = jax.lax.dot_general(
-                w_ref[:], hs.astype(dt), (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=precision)                          # [H, ET]
-        else:
-            g = jnp.dot(hcat_ref[:], oh_src_t,
-                        preferred_element_type=jnp.float32,
-                        precision=precision)                  # [HD+H, ET]
-            hs = g[:HD, :]
-            a_s = g[HD:, :]
-        a_d = jnp.dot(adst_ref[:], oh_dst_t,
-                      preferred_element_type=jnp.float32,
-                      precision=precision)                    # [H, ET]
-
-        def leaky(v):
-            return jnp.where(v >= 0, v, slope * v)
-
-        e = leaky(a_s + a_d)
-        bound = leaky(msrc_ref[:, 0][:, None] + a_d)          # [H, ET]
-        dmat = jax.lax.broadcast_in_dim(dst, (H, ET), (1,))
-        p = jnp.where(dmat < R, jnp.exp(jnp.minimum(e - bound, 60.0)), 0.0)
-        wmat = jax.lax.broadcast_in_dim(
-            wgt_ref[0, 0, :].astype(jnp.float32), (H, ET), (1,))
-        p = p * wmat                                   # term multiplicity
-
-        if HD == H:
-            p_full = p
-        else:
-            # sublane tile-repeat expansion (interleaved feature layout,
-            # see _gat_kernel) — exact f32, no HIGHEST-precision dot
-            p_full = pltpu.repeat(p, HD // H, axis=0)         # [HD, ET]
-
-        v = jnp.concatenate([p_full * hs, p], axis=0).astype(dt)
-        acc_ref[:] += jax.lax.dot_general(
-            v, oh_dst_t, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision)                              # [HD+H, R]
-
-    @pl.when(next_rb != rb_ref[t])
-    def _publish():
-        if normalize:
-            den = jnp.maximum(acc_ref[HD:, :], 1e-20)         # [H, R]
-            if HD == H:
-                den_full = den
-            else:
-                den_full = pltpu.repeat(den, HD // H, axis=0)
-            o_ref[:] = acc_ref[:HD, :] / den_full
-        else:
-            o_ref[:] = acc_ref[:]
+def _leaky(v, slope: float):
+    return jnp.where(v >= 0, v, slope * v)
 
 
-# lane budget under which the transposed dataflow wins (measured v5e)
-NARROW_T = 64
+def _gat_kernel(ps_ref, pe_ref, pr_ref, snd_ref, as_ref, ad_ref, b_ref,
+                h_ref, num_ref, den_ref, *, K: int, DB: int, slope: float,
+                n_edges: int):
+    p = pl.program_id(0)
+    k = pl.program_id(1)
+    start = ps_ref[p]
+    end = pe_ref[p]
+    r = pr_ref[p]
+    a_d = ad_ref[r, k]
+    bound = b_ref[r, k]
+    cols = k * DB + jnp.arange(DB)
+
+    def body(i, carry):
+        num, den = carry
+        off = start + i * K + jnp.arange(K)
+        m = off < end
+        off = jnp.minimum(off, n_edges - 1)
+        ids = plgpu.load(snd_ref.at[off], mask=m, other=0)
+        a_s = plgpu.load(as_ref.at[ids, k], mask=m, other=0.0)
+        z = _leaky(a_s + a_d, slope)
+        pz = jnp.where(m, jnp.exp(z - bound), 0.0)
+        hs = plgpu.load(h_ref.at[ids[:, None], cols[None, :]],
+                        mask=m[:, None], other=0).astype(jnp.float32)
+        return num + jnp.sum(hs * pz[:, None], axis=0), den + jnp.sum(pz)
+
+    n_chunks = (end - start + K - 1) // K
+    num, den = lax.fori_loop(
+        0, n_chunks, body,
+        (jnp.zeros((DB,), jnp.float32), jnp.zeros((), jnp.float32)))
+    num_ref[p, pl.ds(k * DB, DB)] = num
+    den_ref[p, k] = den
 
 
-# (the round-3 WIDE grouped GAT kernel was deleted in r4: it paid the
-# narrow-lane pad tax on every per-head operand and measured 1.7x
-# slower than _gat_grouped_kernel_t at tail density — gat_grouped_ab)
-def _gat_grouped_kernel_t(
-    grp_ref, cb_ref,
-    src_ref, dst_ref, wgt_ref, hcat_ref, w_ref, adst_ref, msrc_ref,
-    o_ref,
-    *, block_rows: int, block_cols: int, tile_edges: int, group: int,
-    HD: int, H: int, slope: float, precision, unit_weight: bool,
-):
-    """TRANSPOSED stripe-group chunked GAT partials (round 4).
-
-    The round-3 grouped GAT kernel (_gat_grouped_kernel) kept the WIDE
-    [edges, feat] orientation, so every narrow per-head operand paid the
-    128-lane tax the per-tile transposed kernel exists to avoid: the a_dst
-    gather runs H=4 lanes of 128 (32x pad waste), the scatter pads HD+H=132
-    lanes to 256, and the whole exp chain idles 31/32 lanes — measured only
-    +7% over per-tile (ROADMAP r3 §2).  This variant keeps the chunk
-    structure (one hcat panel DMA + one grid step per G sub-tiles, narrow
-    R+C one-hot width) but lays every per-edge array as [feat, edges] like
-    _gat_kernel_t:
-
-        hs  = hcat_t[HD, C] @ oh_src_t[C, G*ET]          # one wide pass
-        a_s = w^T @ hs                                   # [H, G*ET], derive
-        per sub-tile g (static unroll):
-          a_d = ads_t[:, gR:gR+R] @ oh_dst_t_g           # [H, ET]
-          p   = exp(leaky(a_s_g + a_d) - bound)          # [H, ET] full lanes
-          o[:, gR:gR+R] += [B^T p * hs_g ; p] @ oh_dst_t_g^T
-
-    Per edge slot the matmul work is C*HD + R*(HD+H) MACs + (C+R) one-hot
-    compares — the same asymptotics as the grouped SpMM kernel plus the
-    tiny [H,*] head chain, instead of the wide variant's 2.5x pad blowup.
-    Derive-only (a_src = hs @ w in-kernel), normalize=False semantics.
-    """
-    c = pl.program_id(1)
-    G, ET, R, C = group, tile_edges, block_rows, block_cols
-    GET = G * ET
-    dt = hcat_ref.dtype
-
-    prev_grp = jnp.where(c == 0, -1, grp_ref[jnp.maximum(c - 1, 0)])
-
-    @pl.when(grp_ref[c] != prev_grp)
-    def _zero():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    src = src_ref[0].astype(jnp.int32).reshape(GET)           # [GET]
-    src_b = jax.lax.broadcast_in_dim(src, (C, GET), (1,))
-    oh_src_t = (src_b == jax.lax.broadcasted_iota(
-        jnp.int32, (C, GET), 0)).astype(dt)                   # [C, GET]
-
-    hs = jnp.dot(hcat_ref[:], oh_src_t,
-                 preferred_element_type=jnp.float32,
-                 precision=precision)                         # [HD, GET]
-    a_s = jax.lax.dot_general(
-        w_ref[:], hs.astype(dt), (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=precision)                                  # [H, GET]
-
-    def leaky(v):
-        return jnp.where(v >= 0, v, slope * v)
-
-    for g in range(G):
-        dstg = dst_ref[0, g].astype(jnp.int32)                # [ET]
-        dst_b = jax.lax.broadcast_in_dim(dstg, (R, ET), (1,))
-        oh_dst_t = (dst_b == jax.lax.broadcasted_iota(
-            jnp.int32, (R, ET), 0)).astype(dt)                # [R, ET]
-        a_d = jnp.dot(adst_ref[:, g * R:(g + 1) * R], oh_dst_t,
-                      preferred_element_type=jnp.float32,
-                      precision=precision)                    # [H, ET]
-        e = leaky(a_s[:, g * ET:(g + 1) * ET] + a_d)
-        bound = leaky(msrc_ref[:, 0][:, None] + a_d)          # [H, ET]
-        dmat = jax.lax.broadcast_in_dim(dstg, (H, ET), (1,))
-        p = jnp.where(dmat < R, jnp.exp(jnp.minimum(e - bound, 60.0)), 0.0)
-        if not unit_weight:
-            wmat = jax.lax.broadcast_in_dim(
-                wgt_ref[0, g].astype(jnp.float32), (H, ET), (1,))
-            p = p * wmat                               # term multiplicity
-        if HD == H:
-            p_full = p
-        else:
-            # head->feature expansion as a SUBLANE TILE-REPEAT: feature
-            # row i gets head i % H — exact (f32 copy, no dot) and ~1.6x
-            # the whole kernel vs the old HIGHEST-precision K=H MXU dot
-            # (scripts/gat_chain_ablate.py v3: 111.2 -> 70.4 ms).  The
-            # caller INTERLEAVES the h/w_asrc feature layout to match and
-            # un-interleaves the num output (head-major <-> head-minor).
-            p_full = pltpu.repeat(p, HD // H, axis=0)     # [HD, ET]
-        v = jnp.concatenate(
-            [p_full * hs[:, g * ET:(g + 1) * ET], p], axis=0).astype(dt)
-        o_ref[:, g * R:(g + 1) * R] += jax.lax.dot_general(
-            v, oh_dst_t, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision)                              # [HD+H, R]
-
-
-def _gat_grouped_raw(
-    tg,
-    h_src: jax.Array,
-    a_dst: jax.Array,
-    w_asrc: jax.Array,
-    msrc: jax.Array,
-    *,
-    negative_slope: float = 0.2,
-    interpret: bool = False,
-    precision=None,
-    max_chunks_per_call: int = 65536,
-) -> jax.Array:
-    """Grouped-chunk GAT partials: [n_node, HD+H] = [num ‖ den] under the
-    ``msrc`` shift bound (normalize=False semantics) — the transposed
-    interleaved-repeat kernel (_gat_grouped_kernel_t), the r4 production
-    GAT tail (1.56x per-tile / 1.69x the deleted r3 wide grouped kernel
-    at Reddit-tail density, scripts/gat_grouped_ab.py)."""
-    from .spmm import _stripe_chunks
-    H = a_dst.shape[1]
-    HD = h_src.shape[1]
-    G, R, C, ET = tg.group, tg.block_rows, tg.block_cols, tg.tile_edges
-    GR = G * R
-    n_cols = tg.n_col_blocks * C
-    n_rows = tg.n_groups * GR
-    dt = h_src.dtype
-    if precision is None:
-        precision = (jax.lax.Precision.HIGHEST if dt == jnp.float32
-                     else jax.lax.Precision.DEFAULT)
-    hcat = jnp.zeros((n_cols, HD), dt).at[: h_src.shape[0]].set(h_src)
-    ads = jnp.zeros((n_rows, H), a_dst.dtype).at[: a_dst.shape[0]].set(
-        a_dst)
-    kernel = functools.partial(
-        _gat_grouped_kernel_t, block_rows=R, block_cols=C,
-        tile_edges=ET, group=G, HD=HD, H=H, slope=negative_slope,
-        precision=precision, unit_weight=tg.weight_all_unit)
-    # head-MINOR (interleaved) feature layout: feature i belongs to
-    # head i % H, so the kernel's tile-repeat expansion of p lines up
-    # with hs rows; num columns are un-interleaved after the call
-    D_ = HD // H
-    if HD != H:
-        idx = np.arange(HD)
-        perm = (idx % H) * D_ + idx // H      # new feature -> old
-        inv = (idx % D_) * H + idx // D_      # old feature -> new
-        unperm_cols = np.concatenate([inv, HD + np.arange(H)])
-        hcat = hcat[:, perm]
-        w_asrc_k = w_asrc[perm, :]
-    else:
-        unperm_cols = None
-        w_asrc_k = w_asrc
-    hcat_t = hcat.T
-    ads_t = ads.astype(jnp.float32).T
-
-    def call_t(chunk_grp, chunk_cb, srcl, dstl, wv, n_grp, ads_t_part):
-        NC = int(chunk_grp.shape[0])
-        edge_spec = pl.BlockSpec((1, G, ET),
-                                 lambda fi, c, grp, cb: (c, 0, 0))
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(1, NC),
-            in_specs=[
-                edge_spec, edge_spec, edge_spec,
-                pl.BlockSpec((HD, C), lambda fi, c, grp, cb: (0, cb[c])),
-                pl.BlockSpec((HD, H), lambda fi, c, grp, cb: (0, 0)),
-                pl.BlockSpec((H, GR), lambda fi, c, grp, cb: (0, grp[c])),
-                pl.BlockSpec((H, 1), lambda fi, c, grp, cb: (0, 0)),
-            ],
-            out_specs=pl.BlockSpec(
-                (HD + H, GR), lambda fi, c, grp, cb: (0, grp[c])),
-        )
-        return pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((HD + H, n_grp * GR),
-                                           jnp.float32),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * NC * G * ET * (C * HD + R * (HD + H)) // max(ET, 1),
-                bytes_accessed=NC * (C * HD + GR * H) * dt.itemsize,
-                transcendentals=NC * G * ET * H,
-            ),
-            interpret=interpret,
-        )(chunk_grp, chunk_cb, srcl, dstl, wv,
-          hcat_t, w_asrc_k.astype(dt), ads_t_part,
-          msrc.astype(jnp.float32).T)
-
-    def _unperm(out):
-        # un-interleave the num columns (head-minor -> head-major)
-        return out if unperm_cols is None else out[:, unperm_cols]
-
-    NC = tg.n_chunks
-    if NC <= max_chunks_per_call or tg.grp_first_chunk_host is None:
-        acc = call_t(tg.chunk_grp, tg.chunk_cb, tg.src_local,
-                     tg.dst_local, tg.weight, tg.n_groups, ads_t)
-        return _unperm(acc.T[: tg.n_node])
-    parts = []
-    for c0, c1, g0, g1 in _stripe_chunks(
-            tg.grp_first_chunk_host, NC, max_chunks_per_call):
-        # chunk_grp is rebased by -g0, so the a_dst panel must be sliced
-        # to the same group window — its BlockSpec indexes (grp[c], 0)
-        parts.append(call_t(
-            tg.chunk_grp[c0:c1] - g0, tg.chunk_cb[c0:c1],
-            tg.src_local[c0:c1], tg.dst_local[c0:c1],
-            tg.weight[c0:c1], g1 - g0,
-            ads_t[:, g0 * GR:g1 * GR]))
-    return _unperm(jnp.concatenate(parts, axis=1).T[: tg.n_node])
-
-
-def _gat_forward(
-    tg: TiledGraph,
-    h_src: jax.Array,
-    a_src: jax.Array,
-    a_dst: jax.Array,
-    *,
-    w_asrc: jax.Array = None,
-    negative_slope: float = 0.2,
-    interpret: bool = False,
-    precision=None,
-    normalize: bool = True,
-    msrc: jax.Array = None,
-    max_tiles_per_call: int = None,
-    dataflow: str = None,
-) -> jax.Array:
-    from ..graph import GroupedTiledGraph, MultiTiledGraph
-    if isinstance(tg, GroupedTiledGraph):
-        assert not normalize and msrc is not None and w_asrc is not None, (
-            "grouped GAT supports the hybrid partial path only: "
-            "normalize=False + msrc + w_asrc (derive)")
-        return _gat_grouped_raw(
-            tg, h_src, a_dst, w_asrc, msrc,
-            negative_slope=negative_slope, interpret=interpret,
-            precision=precision)
-    if isinstance(tg, MultiTiledGraph):
-        # per-run capacity classes: the (num, den) accumulators are plain
-        # sums over edges, so per-class partials add exactly — PROVIDED all
-        # classes share one softmax shift (msrc) and normalization happens
-        # once outside (normalize=False), like the dense/tile hybrid split
-        assert not normalize and msrc is not None, (
-            "MultiTiledGraph GAT needs normalize=False and an explicit "
-            "msrc so per-class partial softmax accumulators compose")
-        acc = None
-        for part in tg.parts:
-            a = _gat_forward(
-                part, h_src, a_src, a_dst, w_asrc=w_asrc,
-                negative_slope=negative_slope, interpret=interpret,
-                precision=precision, normalize=False, msrc=msrc,
-                max_tiles_per_call=max_tiles_per_call, dataflow=dataflow)
-            acc = a if acc is None else acc + a
-        return acc
-
-    from .spmm import MAX_TILES_PER_CALL, _stripe_chunks
-    if max_tiles_per_call is None:
-        max_tiles_per_call = MAX_TILES_PER_CALL
-    H = a_dst.shape[1]
-    HD = h_src.shape[1]
-    assert HD % H == 0, (HD, H)
-    if precision is None:
-        precision = (jax.lax.Precision.HIGHEST if h_src.dtype == jnp.float32
-                     else jax.lax.Precision.DEFAULT)
-    # dataflow: None = measured heuristic (transposed below NARROW_T lanes);
-    # "wide" / "transposed" / "transposed_derive" force an orientation
-    # (the tuner sweeps them)
-    if dataflow is None:
-        narrow = HD + H <= NARROW_T
-    else:
-        assert dataflow in ("wide", "transposed", "transposed_derive"), \
-            dataflow
-        narrow = dataflow != "wide"
-    derive = False
-    if w_asrc is not None:
-        # a_src is a linear map of h: the [N, HD] @ [HD, H] matmul is noise
-        # next to the kernel, and taking *values* keeps the data-dependent
-        # softmax bound exact at every input scale.  With ``derive`` the
-        # values stay out of the gather operand — the kernel re-derives
-        # them so pass 1 is one 128-lane (or 128-sublane) chunk, not two
-        # (ROADMAP "width-128 repack").  Derive measures faster in BOTH
-        # orientations (Reddit tail 13.9->9.6 ms, headline chain
-        # 28.6->25.6 us — scripts/gat_tail_ab, headline_df_ab), so it is
-        # the default whenever w_asrc is given; dataflow="transposed"
-        # forces the packed variant.
-        a_src = jnp.dot(h_src, w_asrc.astype(h_src.dtype),
-                        preferred_element_type=jnp.float32)
-        derive = dataflow != "transposed"
-
-    R, C, ET, T = tg.block_rows, tg.block_cols, tg.tile_edges, tg.n_tiles
-    if (narrow and not interpret and R % 128 != 0
-            and tg.n_row_blocks > 1):
-        # the transposed dataflow puts the row axis on the 128-lane dim
-        # (ads [H, R] blocks, out [out_w, R] blocks): Mosaic requires the
-        # last block dim to be a multiple of 128 (or one block == whole axis)
-        raise ValueError(
-            f"transposed GAT dataflow needs block_rows % 128 == 0, got {R}")
-    n_cols = tg.n_col_blocks * C
-    n_rows = tg.n_row_blocks * R
-    # head-MINOR (interleaved) feature layout for the TRANSPOSED kernels'
-    # sublane tile-repeat head expansion: feature i belongs to head i % H
-    # (see _gat_kernel_t); num output columns are un-interleaved below.
-    # The wide kernel keeps the head-major layout + B-dot (lane repeats
-    # are slow, see _gat_kernel).
-    if HD != H and narrow:
-        _i = np.arange(HD)
-        perm = (_i % H) * (HD // H) + _i // H     # new feature -> old
-        inv = (_i % (HD // H)) * H + _i // (HD // H)
-    else:
-        perm = inv = None
-    if derive:
-        hcat = jnp.zeros((n_cols, HD), h_src.dtype)
-        hcat = hcat.at[: h_src.shape[0]].set(h_src)
-        if perm is not None:
-            hcat = hcat[:, perm]
-        wk = w_asrc.astype(h_src.dtype)
-        if perm is not None:
-            wk = wk[perm, :]
-    else:
-        # packed pass-1 operand [h ‖ a_src]
-        hcat = jnp.zeros((n_cols, HD + H), h_src.dtype)
-        hcat = hcat.at[: h_src.shape[0], :HD].set(
-            h_src if perm is None else h_src[:, perm])
-        hcat = hcat.at[: a_src.shape[0], HD:].set(a_src.astype(h_src.dtype))
-    ads = jnp.zeros((n_rows, H), a_dst.dtype).at[: a_dst.shape[0]].set(a_dst)
-    if msrc is None:
-        # global per-head source-logit max (over real nodes): the softmax
-        # shift bound — computed once in XLA, shared by every tile (hybrid
-        # callers pass theirs in so both kernels share one bound)
-        msrc = jnp.max(a_src.astype(jnp.float32), axis=0, keepdims=True)
-
-    out_w = HD + H if not normalize else HD
-
-    def call(tile_rb, tile_cb, srcl, dstl, wgt, rb0, n_rb):
-        Tc = int(tile_rb.shape[0])
-        cost = pl.CostEstimate(
-            flops=2 * Tc * ET * (C + 2 * R) * max(H + HD, 128),
-            bytes_accessed=(hcat.size + ads.size) * h_src.dtype.itemsize,
-            transcendentals=Tc * ET * H,
-        )
-        if narrow:
-            # transposed dataflow: [feat, edges] (see _gat_kernel_t)
-            kernel = functools.partial(
-                _gat_kernel_t, R=R, C=C, ET=ET, H=H, HD=HD,
-                slope=float(negative_slope), normalize=normalize,
-                precision=precision, derive=derive)
-            hcat_w = HD if derive else HD + H
-            in_specs = [
-                pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-                pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-                pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-                pl.BlockSpec((hcat_w, C),
-                             lambda t, rb, cb: (0, jnp.maximum(cb[t], 0))),
-            ]
-            operands = [tile_rb, tile_cb,
-                        srcl[:, None, :], dstl[:, None, :],
-                        wgt[:, None, :], hcat.T]
-            if derive:
-                in_specs.append(
-                    pl.BlockSpec((HD, H), lambda t, rb, cb: (0, 0)))
-                operands.append(wk)
-            in_specs += [
-                pl.BlockSpec((H, R), lambda t, rb, cb: (0, rb[t] + rb0)),
-                pl.BlockSpec((H, 1), lambda t, rb, cb: (0, 0)),
-            ]
-            operands += [ads.astype(jnp.float32).T, msrc.T]
-            grid_spec = pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=2,
-                grid=(Tc,),
-                in_specs=in_specs,
-                out_specs=pl.BlockSpec(
-                    (out_w, R), lambda t, rb, cb: (0, rb[t])),
-                scratch_shapes=[
-                    pltpu.VMEM((HD + H, R), jnp.float32),
-                ],
-            )
-            return pl.pallas_call(
-                kernel,
-                grid_spec=grid_spec,
-                out_shape=jax.ShapeDtypeStruct((out_w, n_rb * R), jnp.float32),
-                cost_estimate=cost,
-                interpret=interpret,
-            )(*operands)
-
-        kernel = functools.partial(
-            _gat_kernel, R=R, C=C, ET=ET, H=H, HD=HD,
-            slope=float(negative_slope), normalize=normalize,
-            precision=precision, derive=derive)
-        hcat_w = HD if derive else HD + H
-        in_specs = [
-            pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-            pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-            pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-            pl.BlockSpec((C, hcat_w),
-                         lambda t, rb, cb: (jnp.maximum(cb[t], 0), 0)),
-        ]
-        operands = [tile_rb, tile_cb,
-                    srcl[:, None, :], dstl[:, None, :],
-                    wgt[:, None, :], hcat]
-        if derive:
-            in_specs.append(pl.BlockSpec((HD, H), lambda t, rb, cb: (0, 0)))
-            operands.append(wk)
-        in_specs += [
-            pl.BlockSpec((R, H), lambda t, rb, cb: (rb[t] + rb0, 0)),
-            pl.BlockSpec((1, H), lambda t, rb, cb: (0, 0)),
-        ]
-        operands += [ads, msrc]
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(Tc,),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((R, out_w), lambda t, rb, cb: (rb[t], 0)),
-            scratch_shapes=[
-                pltpu.VMEM((R, HD + H), jnp.float32),
-            ],
-        )
-        return pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((n_rb * R, out_w), jnp.float32),
-            cost_estimate=cost,
-            interpret=interpret,
-        )(*operands)
-
-    if T <= max_tiles_per_call or tg.row_first_host is None:
-        out = call(tg.tile_rb, tg.tile_cb, tg.src_local, tg.dst_local,
-                   tg.weight, 0, tg.n_row_blocks)
-    else:
-        # SMEM holds only ~100k scalar-prefetch tile entries per call
-        # (see spmm.MAX_TILES_PER_CALL): split at row-stripe boundaries
-        parts = []
-        for t0, t1, rb0, rb1 in _stripe_chunks(
-                tg.row_first_host, T, max_tiles_per_call):
-            parts.append(call(
-                tg.tile_rb[t0:t1] - rb0, tg.tile_cb[t0:t1],
-                tg.src_local[t0:t1], tg.dst_local[t0:t1],
-                tg.weight[t0:t1], rb0, rb1 - rb0))
-        out = jnp.concatenate(parts, axis=1 if narrow else 0)
-    if narrow:
-        out = out.T[: tg.n_node]
-    else:
-        out = out[: tg.n_node]
-    if inv is not None:
-        # un-interleave the num columns (head-minor -> head-major); the
-        # den tail (normalize=False) is per-head, layout unchanged
-        cols = (inv if out_w == HD
-                else np.concatenate([inv, HD + np.arange(H)]))
-        out = out[:, cols]
-    return out
-
-
-def _gat_reference(tg: TiledGraph, h_src, a_src, a_dst, negative_slope):
-    """XLA segment-op formulation over the tile edge lists — the
-    differentiable twin of the kernel (used for the custom VJP backward)."""
-    n = tg.n_node
+def gat_partials(cg: CsrGraph, h: jax.Array, a_src: jax.Array,
+                 a_dst: jax.Array, msrc: jax.Array, *,
+                 negative_slope: float = 0.2,
+                 launch: Launch = GAT_LAUNCH):
+    """Unnormalised attention partials of every row under the shift bound
+    b = leaky(msrc + a_dst): ``(num [n_node, HD], den [n_node, H])``, both
+    float32.  ``msrc`` [1, H] must dominate a_src over every sender
+    (the global max; a mesh-wide max when partials of several devices add).
+    h / a_src need every real sender row; a_dst has n_node rows."""
     H = a_src.shape[1]
-    HD = h_src.shape[1]
+    HD = h.shape[1]
     D = HD // H
-    src = tg.src_local.reshape(-1) + tg.tile_cb[:, None].repeat(
-        tg.tile_edges, 1).reshape(-1) * tg.block_cols
-    dst = tg.dst_local.reshape(-1) + tg.tile_rb[:, None].repeat(
-        tg.tile_edges, 1).reshape(-1) * tg.block_rows
-    valid = (tg.dst_local.reshape(-1) < tg.block_rows) & (
-        tg.src_local.reshape(-1) < tg.block_cols)
-    src = jnp.where(valid, src, n)
-    dst = jnp.where(valid, dst, n)
+    DB = pow2_at_least(D)
+    f32 = jnp.float32
+    hp = pad_heads(h, H, DB)
+    bound = _leaky(msrc.astype(f32) + a_dst.astype(f32), negative_slope)
+    kernel = functools.partial(
+        _gat_kernel, K=launch.edge_chunk, DB=DB,
+        slope=float(negative_slope), n_edges=int(cg.senders.shape[0]))
+    num, den = pl.pallas_call(
+        kernel,
+        grid=(cg.n_pieces, H),
+        out_shape=(jax.ShapeDtypeStruct((cg.n_pieces, H * DB), f32),
+                   jax.ShapeDtypeStruct((cg.n_pieces, H), f32)),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=launch.num_warps, num_stages=launch.num_stages),
+        backend="triton",
+        interpret=interpret_mode(),
+        name="gta_csr_gat",
+    )(cg.piece_start, cg.piece_end, cg.piece_row, cg.senders,
+      a_src.astype(f32), pad_rows(a_dst.astype(f32)), pad_rows(bound), hp)
+    num = combine_pieces(cg, num)
+    den = combine_pieces(cg, den)
+    return unpad_heads(num, H, D), den
 
-    pad = jnp.zeros((1, HD), h_src.dtype)
-    hs = jnp.concatenate([h_src.astype(jnp.float32),
-                          pad.astype(jnp.float32)], 0)[src]
-    asr = jnp.concatenate([a_src.astype(jnp.float32),
-                           jnp.zeros((1, H))], 0)[src]
-    ads = jnp.concatenate([a_dst.astype(jnp.float32),
-                           jnp.zeros((1, H))], 0)[dst]
-    e = jax.nn.leaky_relu(asr + ads, negative_slope)
-    e = jnp.where(valid[:, None], e, NEG)
-    m = jax.ops.segment_max(e, dst, n + 1)
+
+def _normalise(num, den, D):
+    return num / jnp.repeat(jnp.maximum(den, 1e-20), D, axis=1)
+
+
+def _global_msrc(a_src):
+    return jnp.max(lax.stop_gradient(a_src).astype(jnp.float32), axis=0,
+                   keepdims=True)
+
+
+def _edge_dots(h, gbar, src, dst, heads: int,
+               chunk: int = 1 << 22) -> jax.Array:
+    """t[e, k] = <gbar[dst_e], h[src_e]> over head k's columns, float32
+    [E, H]; edge chunks bound the gathered rows XLA may hold at once."""
+    f32 = jnp.float32
+    e = src.shape[0]
+    d = h.shape[1] // heads
+    chunk = min(chunk, e)
+    n_chunks = -(-e // chunk)
+    pad = n_chunks * chunk - e
+    hp = pad_rows(h)
+    gp = pad_rows(gbar.astype(h.dtype))
+    dump = hp.shape[0] - 1
+    src_c = jnp.pad(src, (0, pad), constant_values=dump).reshape(n_chunks, -1)
+    dst_c = jnp.pad(dst, (0, pad), constant_values=dump).reshape(n_chunks, -1)
+
+    def one(sd):
+        s, t = sd
+        prod = (jnp.take(hp, s, axis=0).astype(f32)
+                * jnp.take(gp, t, axis=0).astype(f32))
+        return jnp.sum(prod.reshape(-1, heads, d), axis=-1)
+
+    return lax.map(one, (src_c, dst_c)).reshape(-1, heads)[:e]
+
+
+def _gat_bwd(cg, cg_t, perm_t, h, a_s, a_d, msrc, out, den, gbar, slope):
+    n = cg.n_node
+    H = a_s.shape[1]
+    HD = h.shape[1]
+    D = HD // H
+    f32 = jnp.float32
+    src, dst = cg.senders, cg.receivers
+    real = (dst < n)[:, None]
+    lraw = (jnp.take(pad_rows(a_s.astype(f32)), src, axis=0, mode="clip")
+            + jnp.take(pad_rows(a_d.astype(f32)), dst, axis=0, mode="clip"))
+    bound = _leaky(msrc + a_d.astype(f32), slope)
+    pz = jnp.exp(_leaky(lraw, slope)
+                 - jnp.take(pad_rows(bound), dst, axis=0, mode="clip"))
+    inv_den = 1.0 / jnp.maximum(den, 1e-20)
+    alpha = jnp.where(
+        real, pz * jnp.take(pad_rows(inv_den), dst, axis=0, mode="clip"),
+        0.0)
+    gb = gbar.astype(f32)
+    t = _edge_dots(h, gb, src, dst, H)
+    s2 = jnp.sum((gb * out).reshape(n, H, D), axis=-1)
+    dl = alpha * (t - jnp.take(pad_rows(s2), dst, axis=0, mode="clip"))
+    dz = dl * jnp.where(lraw >= 0, 1.0, slope)
+    dad = jax.ops.segment_sum(dz, dst, n + 1, indices_are_sorted=True)[:n]
+    das = jax.ops.segment_sum(dz, src, n + 1)[:n]
+    if cg_t is not None:
+        dh = spmm_raw(cg_t, gbar.astype(h.dtype),
+                      jnp.take(alpha, perm_t, axis=0), heads=H)
+    else:
+        msg = (jnp.repeat(alpha, D, axis=1)
+               * jnp.take(pad_rows(gb), dst, axis=0, mode="clip"))
+        dh = jax.ops.segment_sum(msg, src, n + 1)[:n]
+    return dh.astype(h.dtype), das.astype(a_s.dtype), dad.astype(a_d.dtype)
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
+def _gat(slope, cg, cg_t, perm_t, h, a_s, a_d):
+    num, den = gat_partials(cg, h, a_s, a_d, _global_msrc(a_s),
+                            negative_slope=slope)
+    return _normalise(num, den, h.shape[1] // a_s.shape[1])
+
+
+def _gat_fwd(slope, cg, cg_t, perm_t, h, a_s, a_d):
+    msrc = _global_msrc(a_s)
+    num, den = gat_partials(cg, h, a_s, a_d, msrc, negative_slope=slope)
+    out = _normalise(num, den, h.shape[1] // a_s.shape[1])
+    return out, (cg, cg_t, perm_t, h, a_s, a_d, msrc, out, den)
+
+
+def _gat_bwd_rule(slope, res, gbar):
+    cg, cg_t, perm_t, h, a_s, a_d, msrc, out, den = res
+    dh, das, dad = _gat_bwd(cg, cg_t, perm_t, h, a_s, a_d, msrc, out, den,
+                            gbar, slope)
+    return (zero_cotangent(cg),
+            None if cg_t is None else zero_cotangent(cg_t),
+            None if perm_t is None else zero_cotangent(perm_t),
+            dh, das, dad)
+
+
+_gat.defvjp(_gat_fwd, _gat_bwd_rule)
+
+
+def gat_attention(cg: CsrGraph, h: jax.Array, a_src: jax.Array,
+                  a_dst: jax.Array, *, negative_slope: float = 0.2,
+                  cg_t: Optional[CsrGraph] = None,
+                  perm_t: Optional[jax.Array] = None) -> jax.Array:
+    """Multi-head GAT edge-softmax + aggregation through the CSR kernel:
+    h [N, HD], a_src [N, H], a_dst [N, H] -> float32 [N, HD].
+
+    Differentiable.  With ``cg_t`` (unit-weight CSR of the transposed
+    graph) and ``perm_t`` (``transpose_host_graph``'s edge permutation) dh
+    runs the CSR SpMM kernel; without them it is an XLA segment sum that
+    materialises [E, HD]."""
+    if (cg_t is None) != (perm_t is None):
+        raise ValueError("cg_t and perm_t go together")
+    return _gat(float(negative_slope), cg, cg_t, perm_t, h, a_src, a_dst)
+
+
+def gat_reference(cg: CsrGraph, h, a_src, a_dst,
+                  negative_slope: float = 0.2) -> jax.Array:
+    """Plain XLA edge softmax with the exact per-row segment max (the
+    reference's gather-MAX formulation): the oracle of the kernel tests."""
+    n = cg.n_node
+    H = a_src.shape[1]
+    D = h.shape[1] // H
+    f32 = jnp.float32
+    src, dst = cg.senders, cg.receivers
+    real = (dst < n)[:, None]
+    e = _leaky(jnp.take(pad_rows(a_src.astype(f32)), src, axis=0, mode="clip")
+               + jnp.take(pad_rows(a_dst.astype(f32)), dst, axis=0,
+                          mode="clip"), negative_slope)
+    e = jnp.where(real, e, NEG)
+    m = jax.ops.segment_max(e, dst, n + 1, indices_are_sorted=True)
     m = jnp.where(jnp.isfinite(m), m, 0.0)
-    p = jnp.where(valid[:, None], jnp.exp(e - m[dst]), 0.0)
-    den = jax.ops.segment_sum(p, dst, n + 1)
-    num = jax.ops.segment_sum(
-        jnp.repeat(p, D, axis=1) * hs, dst, n + 1)
-    out = num / jnp.maximum(den, 1e-20).repeat(D, axis=1)
-    return out[:n]
+    p = jnp.where(real, jnp.exp(e - jnp.take(m, dst, axis=0)), 0.0)
+    den = jax.ops.segment_sum(p, dst, n + 1, indices_are_sorted=True)
+    hs = jnp.take(pad_rows(h.astype(f32)), src, axis=0, mode="clip")
+    num = jax.ops.segment_sum(jnp.repeat(p, D, axis=1) * hs, dst, n + 1,
+                              indices_are_sorted=True)
+    return _normalise(num, den, D)[:n]
 
 
 # Shift-bound safety margin: rows whose incident a_src all sit further than
@@ -798,1149 +287,22 @@ SHIFT_GAP_SAFE = 60.0
 
 
 def gat_shift_gap(g, a_src: jax.Array) -> jax.Array:
-    """Worst-case shift-bound gap of the fused GAT kernels: scalar
-    ``max over rows/heads of (global max a_src − per-row max incident
-    a_src)``.  Rows with gap > ~85 collapse to zero attention under the
-    kernels' global-msrc shift (module docstring 'Bound domain').  Rows
-    with no in-edges are excluded (their output is 0 either way)."""
+    """Worst-case shift-bound gap of the GAT kernel: scalar ``max over
+    rows/heads of (global max a_src − per-row max incident a_src)``.  Rows
+    with gap > ~85 collapse to zero attention under the kernel's global
+    shift (module docstring 'Bound domain').  Rows with no in-edges are
+    excluded (their output is 0 either way)."""
     n = g.n_node
     src = jnp.where(g.edge_mask, g.senders, n)
     dst = jnp.where(g.edge_mask, g.receivers, n)
-    f32 = jnp.float32
-    a = a_src.astype(f32)
-    pad = jnp.full((1, a.shape[1]), NEG, f32)
-    a_se = jnp.take(jnp.concatenate([a, pad], 0), src, axis=0)
+    a = a_src.astype(jnp.float32)
+    a_se = jnp.take(pad_rows(a, NEG), src, axis=0)
     a_se = jnp.where(g.edge_mask[:, None], a_se, NEG)
     rowmax = jax.ops.segment_max(a_se, dst, n + 1,
                                  indices_are_sorted=True)[:n]
     msrc = jnp.max(a, axis=0)
     gap = jnp.where(rowmax > NEG / 2, msrc[None, :] - rowmax, 0.0)
     return jnp.max(gap)
-
-
-def _gat_bwd_scalable(g, tg, tg_t, perm_t, h, a_s, a_d, out, gbar,
-                      slope: float, interpret: bool = False):
-    """GAT attention gradients WITHOUT materialising any [E, HD] tensor —
-    the tiled backward (VERDICT r2 next-3).
-
-    Math (per head, α the normalised softmax weight of edge e = s->d):
-      dh[s]   = Σ_{e: src=s} α_e ḡ_d          -> H transposed SpMMs with
-                                                 per-edge vals α (tg_t)
-      t_e     = <ḡ_d, h_s>                     -> tiled SDDMM over tg
-      dl_e    = α_e (t_e − <ḡ_d, out_d>)       (softmax VJP; Σα t = <ḡ,out>)
-      dz_e    = dl_e · leaky_relu'(a_s+a_d)
-      da_s[s] = Σ_{src=s} dz_e ; da_d[d] = Σ_{dst=d} dz_e
-
-    Memory: all edge-domain intermediates are ONE-DIMENSIONAL [E] arrays
-    inside a per-head python loop — a 2-D [E, H] array at H=4 pads its
-    lane dim 4 -> 128 under the TPU (8,128) tiling and costs 32x its
-    logical bytes (58 GB at Reddit scale; bisected from the full-batch
-    OOM).  α is recomputed in the exact per-dst segment-max form, so the
-    grads match autodiff of the XLA reference to roundoff."""
-    from . import sddmm as sddmm_mod
-    from . import spmm as spmm_mod
-    n = g.n_node
-    H = a_s.shape[1]
-    HD = h.shape[1]
-    D = HD // H
-    f32 = jnp.float32
-    # padding edges already carry src == dst == n (build_host_graph pads
-    # with n_node): they route to the dump segment n and are sliced away,
-    # so NO masking selects are needed — each where() here materialised a
-    # fresh [E] buffer (437 MB at Reddit) and pushed the step over HBM
-    src = g.senders
-    dst = g.receivers
-    gb = gbar.astype(f32)
-    s2 = jnp.sum(gb.reshape(n, H, D) * out.reshape(n, H, D), axis=-1)
-
-    def pad1(v):  # [N] -> [N+1] with 0 dump row
-        return jnp.concatenate([v.astype(f32), jnp.zeros((1,), f32)], 0)
-
-    das_cols, dad_cols, dh_cols = [], [], []
-    # serialise the head iterations: without the barrier token XLA
-    # schedules all H sets of [E] temporaries concurrently (measured
-    # 12.7 GB HLO temp at Reddit scale -> HBM OOM); the token makes head
-    # k+1 data-depend on head k's outputs so each head's edge arrays die
-    # before the next is live
-    tok = jnp.zeros((), f32)
-    for k in range(H):
-        a_se = jnp.take(pad1(a_s[:, k] + tok), src)        # [E]
-        a_de = jnp.take(pad1(a_d[:, k]), dst)
-        lraw = a_se + a_de
-        pos = lraw > 0           # [E] bool (1/8 the bytes of keeping lraw)
-        e = jnp.where(pos, lraw, slope * lraw)
-        m = jax.ops.segment_max(e, dst, n + 1)
-        m = jnp.where(jnp.isfinite(m), m, 0.0)
-        p = jnp.exp(e - jnp.take(m, dst))
-        den = jnp.maximum(
-            jax.ops.segment_sum(p, dst, n + 1, indices_are_sorted=True),
-            1e-20)
-        alpha = p / jnp.take(den, dst)                     # [E]
-        # per-head SDDMM in tile layout, mapped back to edge order as a
-        # 1-D scatter-add (pad slots are exact zeros).  The token gates
-        # these inputs too — otherwise XLA hoists all H SDDMM calls ahead
-        # of the loop and their tile buffers are concurrently live
-        hk = h[:, k * D:(k + 1) * D] + tok.astype(h.dtype)
-        gk = gb[:, k * D:(k + 1) * D] + tok
-        t_tile = sddmm_mod.sddmm(tg, hk, gk.astype(h.dtype), heads=1,
-                                 interpret=interpret)
-        # 2-D scatter: flattening edge_id would materialise a 558 MB
-        # re-laid-out copy at Reddit scale
-        tk = jnp.zeros((g.e_pad,), f32).at[tg.edge_id].add(
-            t_tile[0], mode="drop")
-        s2e = jnp.take(pad1(s2[:, k]), dst)
-        dl = alpha * (tk - s2e)
-        dz = dl * jnp.where(pos, 1.0, slope)
-        dad_k = jax.ops.segment_sum(
-            dz, dst, n + 1, indices_are_sorted=True)[:n]
-        das_k = jnp.zeros((n + 1,), f32).at[src].add(dz, mode="drop")[:n]
-        alpha_t = jnp.take(alpha, perm_t)                  # transposed order
-        dh_k = spmm_mod._spmm_raw(tg_t, gk, alpha_t,
-                                  interpret=interpret)[:n]
-        dad_k, das_k, dh_k = jax.lax.optimization_barrier(
-            (dad_k, das_k, dh_k))
-        tok = dh_k[0, 0] * 0.0
-        dad_cols.append(dad_k)
-        das_cols.append(das_k)
-        dh_cols.append(dh_k)
-    dh = jnp.concatenate(dh_cols, axis=1)
-    das = jnp.stack(das_cols, axis=1)
-    dad = jnp.stack(dad_cols, axis=1)
-    return (dh.astype(h.dtype), das.astype(a_s.dtype),
-            dad.astype(a_d.dtype))
-
-
-# ---------------------------------------------------------------------------
-# FUSED tile-domain backward (round 4): the whole per-edge gradient chain
-# (alpha recompute, SDDMM t, softmax VJP, leaky chain, three scatters) runs
-# inside two Pallas kernels — zero [E]-shaped HBM intermediates.
-#
-# The r3 backward (_gat_bwd_scalable) kept every edge-domain quantity 1-D
-# per head but still round-tripped ~10 [E] f32 arrays through HBM per head
-# (~240 MB each at Reddit): 50.8 s/step at 60M edges, and past ~60M the
-# 2-layer step crossed the device's ~60 s per-program wall-clock budget
-# (scripts/long_program_probe.py).  Here the chain is restructured the same
-# way the forward was: per edge TILE, everything lives in VMEM.
-#
-# Math (per head k; alpha the forward's normalised weight of edge s->d):
-#   t_e    = <gbar_d, h_s>                    (per-head SDDMM)
-#   s2_d   = <gbar_d, out_d>                  (tiny [N, H] XLA precompute)
-#   dl_e   = alpha_e (t_e - s2_d)             (softmax VJP)
-#   dz_e   = dl_e * leaky'(a_s[s] + a_d[d])
-#   dad[d] = sum_{dst=d} dz_e                 <- kernel over tg   (dst rows)
-#   das[s] = sum_{src=s} dz_e                 <- kernel over tg_t (src rows)
-#   dh[s]  = sum_{src=s} alpha_e gbar_d       <- same tg_t kernel
-#
-# alpha is recomputed from the forward's OWN shift-bound form using the
-# saved per-row denominator:  alpha = wgt * exp(leaky(a_se+a_de) - bound)
-# / den[d],  bound = leaky(max_s a_s + a_d[d]) — identical to the forward
-# kernel's weights (the r3 backward recomputed the exact segment-max form;
-# saving den [N, H] is 3.7 MB at Reddit and removes both segment passes).
-# Edge multiplicity (hybrid int8 merges): dz and alpha both carry the tile
-# weight, so merged slots contribute exactly their copy count.
-# ---------------------------------------------------------------------------
-
-
-def _gat_bwd_dad_kernel(
-    rb_ref, cb_ref,
-    src_ref, dst_ref, wgt_ref,
-    hcat_ref, dpack_ref, msrc_ref, o_ref, acc_ref,
-    *, R: int, C: int, ET: int, H: int, HD: int, slope: float, precision,
-):
-    """dad = scatter-by-dst of dz, over the forward tiling (rows = dst).
-
-    Per tile: gather [h ‖ a_s] rows by src (pass 1, K=C), gather
-    [gbar ‖ a_d ‖ 1/den ‖ s2] rows by dst (pass 2, K=R), run the edge
-    gradient chain on the VPU + one tiny [ET,HD]@[HD,H] head-sum matmul,
-    scatter dz into the [R, H] accumulator (pass 3, K=ET)."""
-    D = HD // H
-    t = pl.program_id(0)
-    T = pl.num_programs(0)
-    prev_rb = jnp.where(t == 0, -1, rb_ref[jnp.maximum(t - 1, 0)])
-    next_rb = jnp.where(t == T - 1, -1, rb_ref[jnp.minimum(t + 1, T - 1)])
-
-    @pl.when(rb_ref[t] != prev_rb)
-    def _reset():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    @pl.when(cb_ref[t] >= 0)
-    def _compute():
-        src = src_ref[0, 0, :].astype(jnp.int32)
-        dst = dst_ref[0, 0, :].astype(jnp.int32)
-        dt = hcat_ref.dtype
-
-        cols = jax.lax.broadcasted_iota(jnp.int32, (ET, C), 1)
-        oh_src = (src[:, None] == cols).astype(dt)            # [ET, C]
-        rows_er = jax.lax.broadcasted_iota(jnp.int32, (ET, R), 1)
-        oh_dst = (dst[:, None] == rows_er).astype(dt)         # [ET, R]
-
-        gsrc = jnp.dot(oh_src, hcat_ref[:],
-                       preferred_element_type=jnp.float32,
-                       precision=precision)                   # [ET, HD+H]
-        hs = gsrc[:, :HD]
-        a_se = gsrc[:, HD:]
-        gdst = jnp.dot(oh_dst, dpack_ref[:],
-                       preferred_element_type=jnp.float32,
-                       precision=precision)                   # [ET, HD+3H]
-        gbar_e = gdst[:, :HD]
-        a_de = gdst[:, HD:HD + H]
-        rden_e = gdst[:, HD + H:HD + 2 * H]
-        s2e = gdst[:, HD + 2 * H:]
-
-        def leaky(v):
-            return jnp.where(v >= 0, v, slope * v)
-
-        lraw = a_se + a_de
-        bound = leaky(msrc_ref[0, :][None, :] + a_de)
-        dmat = jax.lax.broadcast_in_dim(dst, (ET, H), (0,))
-        p = jnp.where(dmat < R,
-                      jnp.exp(jnp.minimum(leaky(lraw) - bound, 60.0)), 0.0)
-        wmat = jax.lax.broadcast_in_dim(
-            wgt_ref[0, 0, :].astype(jnp.float32), (ET, H), (0,))
-        alpha = p * wmat * rden_e                             # [ET, H]
-
-        # t_e: per-head <gbar_d, h_s> — head-sum via the 0/1 matrix Bt
-        brow = jax.lax.broadcasted_iota(jnp.int32, (HD, H), 0) // D
-        bcol = jax.lax.broadcasted_iota(jnp.int32, (HD, H), 1)
-        Bt = (brow == bcol).astype(jnp.float32)               # [HD, H]
-        # precision follows the compute dtype: for f32 parity HIGHEST;
-        # for bf16 training DEFAULT — the gathered operands are already
-        # bf16-accurate, and tiny-N HIGHEST dots are kernel killers
-        # (ROADMAP r4 fact 2)
-        te = jnp.dot(gbar_e * hs, Bt,
-                     preferred_element_type=jnp.float32,
-                     precision=precision)                     # [ET, H]
-
-        dl = alpha * (te - s2e)
-        dz = dl * jnp.where(lraw >= 0, 1.0, slope)            # [ET, H]
-
-        acc_ref[:] += jax.lax.dot_general(
-            oh_dst, dz.astype(dt), (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=precision)
-
-    @pl.when(next_rb != rb_ref[t])
-    def _publish():
-        o_ref[:] = acc_ref[:]
-
-
-def _gat_bwd_dsrc_kernel(
-    rb_ref, cb_ref,
-    src_ref, dst_ref, wgt_ref,
-    dpack_ref, hcat_ref, msrc_ref, o_ref, acc_ref,
-    *, R: int, C: int, ET: int, H: int, HD: int, slope: float, precision,
-):
-    """[das ‖ dh] over the TRANSPOSED tiling (rows = original src).
-
-    In tg_t the local 'senders' are the original receivers (dst) and the
-    local 'receivers' are the original senders (src), so the dst-side pack
-    is the COLUMN panel here and [h ‖ a_s] is the ROW panel.  Emits one
-    [R, H + HD] block per row stripe: dz scattered by src (das) and
-    alpha-weighted gbar scattered by src (dh)."""
-    D = HD // H
-    t = pl.program_id(0)
-    T = pl.num_programs(0)
-    prev_rb = jnp.where(t == 0, -1, rb_ref[jnp.maximum(t - 1, 0)])
-    next_rb = jnp.where(t == T - 1, -1, rb_ref[jnp.minimum(t + 1, T - 1)])
-
-    @pl.when(rb_ref[t] != prev_rb)
-    def _reset():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    @pl.when(cb_ref[t] >= 0)
-    def _compute():
-        dloc = src_ref[0, 0, :].astype(jnp.int32)   # original dst (cols)
-        sloc = dst_ref[0, 0, :].astype(jnp.int32)   # original src (rows)
-        dt = hcat_ref.dtype
-
-        cols = jax.lax.broadcasted_iota(jnp.int32, (ET, C), 1)
-        oh_col = (dloc[:, None] == cols).astype(dt)           # [ET, C]
-        rows_er = jax.lax.broadcasted_iota(jnp.int32, (ET, R), 1)
-        oh_row = (sloc[:, None] == rows_er).astype(dt)        # [ET, R]
-
-        gdst = jnp.dot(oh_col, dpack_ref[:],
-                       preferred_element_type=jnp.float32,
-                       precision=precision)                   # [ET, HD+3H]
-        gbar_e = gdst[:, :HD]
-        a_de = gdst[:, HD:HD + H]
-        rden_e = gdst[:, HD + H:HD + 2 * H]
-        s2e = gdst[:, HD + 2 * H:]
-        grow = jnp.dot(oh_row, hcat_ref[:],
-                       preferred_element_type=jnp.float32,
-                       precision=precision)                   # [ET, HD+H]
-        hs = grow[:, :HD]
-        a_se = grow[:, HD:]
-
-        def leaky(v):
-            return jnp.where(v >= 0, v, slope * v)
-
-        lraw = a_se + a_de
-        bound = leaky(msrc_ref[0, :][None, :] + a_de)
-        smat = jax.lax.broadcast_in_dim(sloc, (ET, H), (0,))
-        p = jnp.where(smat < R,
-                      jnp.exp(jnp.minimum(leaky(lraw) - bound, 60.0)), 0.0)
-        wmat = jax.lax.broadcast_in_dim(
-            wgt_ref[0, 0, :].astype(jnp.float32), (ET, H), (0,))
-        alpha = p * wmat * rden_e                             # [ET, H]
-
-        brow = jax.lax.broadcasted_iota(jnp.int32, (HD, H), 0) // D
-        bcol = jax.lax.broadcasted_iota(jnp.int32, (HD, H), 1)
-        Bt = (brow == bcol).astype(jnp.float32)               # [HD, H]
-        # precision follows the compute dtype: for f32 parity HIGHEST;
-        # for bf16 training DEFAULT — the gathered operands are already
-        # bf16-accurate, and tiny-N HIGHEST dots are kernel killers
-        # (ROADMAP r4 fact 2)
-        te = jnp.dot(gbar_e * hs, Bt,
-                     preferred_element_type=jnp.float32,
-                     precision=precision)                     # [ET, H]
-
-        dl = alpha * (te - s2e)
-        dz = dl * jnp.where(lraw >= 0, 1.0, slope)            # [ET, H]
-
-        # alpha expanded head->feat (exact copy per head: 0/1 matmul —
-        # these wide-layout kernels keep the dot; a LANE tile-repeat
-        # measured 2x slower in the wide forward kernel, see _gat_kernel)
-        afull = jnp.dot(alpha.astype(dt) if dt != jnp.float32
-                        else alpha, Bt.T,
-                        preferred_element_type=jnp.float32,
-                        precision=precision)                  # [ET, HD]
-        vals = jnp.concatenate([dz, afull * gbar_e], axis=1).astype(dt)
-        acc_ref[:] += jax.lax.dot_general(
-            oh_row, vals, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=precision)
-
-    @pl.when(next_rb != rb_ref[t])
-    def _publish():
-        o_ref[:] = acc_ref[:]
-
-
-def _gat_bwd_fused(tg: TiledGraph, tg_t: TiledGraph, h, a_s, a_d, den, out,
-                   gbar, slope: float, interpret: bool = False,
-                   precision=None, max_tiles_per_call: int = None,
-                   a_s_bound=None):
-    """Fused tile-domain GAT attention backward: (dh, das, dad) with no
-    [E]-shaped HBM intermediate.  ``den`` [N, H] is the forward kernel's
-    per-row softmax denominator (saved residual); the shift bound msrc is
-    recomputed exactly as the forward computes it.
-
-    ``a_s_bound``: the a_src twin the FORWARD derived its msrc bound from,
-    when it differs from ``a_s``.  In w_asrc (derive) mode the forward's
-    per-edge logits use the in-kernel hs@w (full f32 when dt is f32) while
-    msrc comes from the XLA h@w — and this JAX's DEFAULT f32 matmul
-    precision rounds through bf16, so the two can differ by ~1e-3.  alpha
-    = exp(e - bound)/den is only exact if both twins are replicated."""
-    from .spmm import MAX_TILES_PER_CALL, _stripe_chunks
-    if max_tiles_per_call is None:
-        max_tiles_per_call = MAX_TILES_PER_CALL
-    n = tg.n_node
-    H = a_d.shape[1]
-    HD = h.shape[1]
-    D = HD // H
-    dt = h.dtype
-    if precision is None:
-        precision = (jax.lax.Precision.HIGHEST if dt == jnp.float32
-                     else jax.lax.Precision.DEFAULT)
-    f32 = jnp.float32
-    gb32 = gbar.astype(f32)
-    s2 = jnp.sum(gb32.reshape(n, H, D) * out.astype(f32).reshape(n, H, D),
-                 axis=-1)                                      # [N, H]
-    rden = 1.0 / jnp.maximum(den.astype(f32), 1e-20)           # [N, H]
-    msrc = jnp.max((a_s if a_s_bound is None else a_s_bound).astype(f32),
-                   axis=0, keepdims=True)                      # [1, H]
-
-    def dpack_pad(n_pad: int):
-        dp = jnp.zeros((n_pad, HD + 3 * H), dt)
-        dp = dp.at[:n, :HD].set(gbar.astype(dt))
-        dp = dp.at[:n, HD:HD + H].set(a_d.astype(dt))
-        dp = dp.at[:n, HD + H:HD + 2 * H].set(rden.astype(dt))
-        return dp.at[:n, HD + 2 * H:].set(s2.astype(dt))
-
-    def hpack_pad(n_pad: int):
-        hp = jnp.zeros((n_pad, HD + H), dt)
-        hp = hp.at[:n, :HD].set(h.astype(dt))
-        return hp.at[:n, HD:].set(a_s.astype(dt))
-
-    # transposed-dataflow packs: [feat, nodes], feature rows INTERLEAVED
-    # (feature k*H + h_ = head h_'s k-th dim) so the kernels' repeat/
-    # reshape head operations are exact (see the _tt kernel block comment)
-    if HD != H:
-        _i = np.arange(HD)
-        perm_f = (_i % H) * D + _i // H
-        inv_f = (_i % D) * H + _i // D
-    else:
-        perm_f = inv_f = np.arange(HD)
-
-    def dpackT_pad(n_pad: int):
-        dp = jnp.zeros((HD + 3 * H, n_pad), dt)
-        dp = dp.at[:HD, :n].set(gbar.astype(dt)[:, perm_f].T)
-        dp = dp.at[HD:HD + H, :n].set(a_d.astype(dt).T)
-        dp = dp.at[HD + H:HD + 2 * H, :n].set(rden.astype(dt).T)
-        return dp.at[HD + 2 * H:, :n].set(s2.astype(dt).T)
-
-    def hpackT_pad(n_pad: int):
-        hp = jnp.zeros((HD + H, n_pad), dt)
-        hp = hp.at[:HD, :n].set(h.astype(dt)[:, perm_f].T)
-        return hp.at[HD:, :n].set(a_s.astype(dt).T)
-
-    def run(tgx: TiledGraph, col_panel, row_panel, kernel, out_w: int):
-        R, C, ET, T = (tgx.block_rows, tgx.block_cols, tgx.tile_edges,
-                       tgx.n_tiles)
-        colw = col_panel.shape[1]
-        roww = row_panel.shape[1]
-        kfn = functools.partial(kernel, R=R, C=C, ET=ET, H=H, HD=HD,
-                                slope=float(slope), precision=precision)
-
-        def call(tile_rb, tile_cb, srcl, dstl, wgt, rb0, n_rb):
-            Tc = int(tile_rb.shape[0])
-            cost = pl.CostEstimate(
-                flops=2 * Tc * ET * (C + 2 * R) * max(HD + 3 * H, 128),
-                bytes_accessed=(col_panel.size + row_panel.size)
-                * col_panel.dtype.itemsize,
-                transcendentals=Tc * ET * H,
-            )
-            grid_spec = pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=2,
-                grid=(Tc,),
-                in_specs=[
-                    pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-                    pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-                    pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-                    pl.BlockSpec((C, colw),
-                                 lambda t, rb, cb: (jnp.maximum(cb[t], 0), 0)),
-                    pl.BlockSpec((R, roww),
-                                 lambda t, rb, cb: (rb[t] + rb0, 0)),
-                    pl.BlockSpec((1, H), lambda t, rb, cb: (0, 0)),
-                ],
-                out_specs=pl.BlockSpec(
-                    (R, out_w), lambda t, rb, cb: (rb[t], 0)),
-                scratch_shapes=[pltpu.VMEM((R, out_w), jnp.float32)],
-            )
-            return pl.pallas_call(
-                kfn, grid_spec=grid_spec,
-                out_shape=jax.ShapeDtypeStruct((n_rb * R, out_w), jnp.float32),
-                cost_estimate=cost, interpret=interpret,
-            )(tile_rb, tile_cb, srcl[:, None, :], dstl[:, None, :],
-              wgt[:, None, :], col_panel, row_panel, msrc)
-
-        if T <= max_tiles_per_call or tgx.row_first_host is None:
-            return call(tgx.tile_rb, tgx.tile_cb, tgx.src_local,
-                        tgx.dst_local, tgx.weight, 0, tgx.n_row_blocks)
-        parts = []
-        for t0, t1, rb0, rb1 in _stripe_chunks(
-                tgx.row_first_host, T, max_tiles_per_call):
-            parts.append(call(
-                tgx.tile_rb[t0:t1] - rb0, tgx.tile_cb[t0:t1],
-                tgx.src_local[t0:t1], tgx.dst_local[t0:t1],
-                tgx.weight[t0:t1], rb0, rb1 - rb0))
-        return jnp.concatenate(parts, axis=0)
-
-    def run_t(tgx: TiledGraph, col_panel, row_panel, kernel, out_w: int):
-        """Transposed-dataflow launch: panels are [width, nodes], output
-        [out_w, rows] (caller transposes)."""
-        R, C, ET, T = (tgx.block_rows, tgx.block_cols, tgx.tile_edges,
-                       tgx.n_tiles)
-        colw = col_panel.shape[0]
-        roww = row_panel.shape[0]
-        kfn = functools.partial(kernel, R=R, C=C, ET=ET, H=H, HD=HD,
-                                slope=float(slope), precision=precision)
-
-        def call(tile_rb, tile_cb, srcl, dstl, wgt, rb0, n_rb):
-            Tc = int(tile_rb.shape[0])
-            cost = pl.CostEstimate(
-                flops=2 * Tc * ET * (C + 2 * R) * (HD + 3 * H),
-                bytes_accessed=(col_panel.size + row_panel.size)
-                * col_panel.dtype.itemsize,
-                transcendentals=Tc * ET * H,
-            )
-            grid_spec = pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=2,
-                grid=(Tc,),
-                in_specs=[
-                    pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-                    pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-                    pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-                    pl.BlockSpec((colw, C),
-                                 lambda t, rb, cb: (0, jnp.maximum(cb[t], 0))),
-                    pl.BlockSpec((roww, R),
-                                 lambda t, rb, cb: (0, rb[t] + rb0)),
-                    pl.BlockSpec((H, 1), lambda t, rb, cb: (0, 0)),
-                ],
-                out_specs=pl.BlockSpec(
-                    (out_w, R), lambda t, rb, cb: (0, rb[t])),
-                scratch_shapes=[pltpu.VMEM((out_w, R), jnp.float32)],
-            )
-            return pl.pallas_call(
-                kfn, grid_spec=grid_spec,
-                out_shape=jax.ShapeDtypeStruct((out_w, n_rb * R),
-                                               jnp.float32),
-                cost_estimate=cost, interpret=interpret,
-            )(tile_rb, tile_cb, srcl[:, None, :], dstl[:, None, :],
-              wgt[:, None, :], col_panel, row_panel, msrc.T)
-
-        if T <= max_tiles_per_call or tgx.row_first_host is None:
-            return call(tgx.tile_rb, tgx.tile_cb, tgx.src_local,
-                        tgx.dst_local, tgx.weight, 0, tgx.n_row_blocks)
-        parts = []
-        for t0, t1, rb0, rb1 in _stripe_chunks(
-                tgx.row_first_host, T, max_tiles_per_call):
-            parts.append(call(
-                tgx.tile_rb[t0:t1] - rb0, tgx.tile_cb[t0:t1],
-                tgx.src_local[t0:t1], tgx.dst_local[t0:t1],
-                tgx.weight[t0:t1], rb0, rb1 - rb0))
-        return jnp.concatenate(parts, axis=1)
-
-    def can_t(tgx: TiledGraph) -> bool:
-        # same Mosaic lane constraint as the forward transposed kernels
-        return (tgx.block_rows % 128 == 0 or tgx.n_row_blocks == 1
-                or interpret)
-
-    # kernel 1 (forward tiling, rows = dst): dad
-    if GAT_BWD_T and can_t(tg):
-        dad = run_t(tg, hpackT_pad(tg.n_col_blocks * tg.block_cols),
-                    dpackT_pad(tg.n_row_blocks * tg.block_rows),
-                    _gat_bwd_dad_kernel_tt, H).T[:n]
-    else:
-        dad = run(tg, hpack_pad(tg.n_col_blocks * tg.block_cols),
-                  dpack_pad(tg.n_row_blocks * tg.block_rows),
-                  _gat_bwd_dad_kernel, H)[:n]
-    # kernel 2 (transposed tiling, rows = src): [das ‖ dh]
-    if GAT_BWD_T and can_t(tg_t):
-        sd = run_t(tg_t, dpackT_pad(tg_t.n_col_blocks * tg_t.block_cols),
-                   hpackT_pad(tg_t.n_row_blocks * tg_t.block_rows),
-                   _gat_bwd_dsrc_kernel_tt, H + HD).T[:n]
-        das = sd[:, :H]
-        dh = sd[:, H:][:, inv_f]      # un-interleave the feature columns
-    else:
-        sd = run(tg_t, dpack_pad(tg_t.n_col_blocks * tg_t.block_cols),
-                 hpack_pad(tg_t.n_row_blocks * tg_t.block_rows),
-                 _gat_bwd_dsrc_kernel, H + HD)[:n]
-        das = sd[:, :H]
-        dh = sd[:, H:]
-    return dh.astype(h.dtype), das.astype(a_s.dtype), dad.astype(a_d.dtype)
-
-
-# ---------------------------------------------------------------------------
-# TRANSPOSED-dataflow fused backward (round 5): same math as the wide
-# kernels above, in the [feat, edges] orientation the forward won with.
-#
-# The wide backward pays the narrow-lane pad tax everywhere: gather dots
-# [ET, C] @ [C, HD+3H] pad N = 140 -> 256 (45% waste), the dad scatter
-# [ET, R]^T @ [ET, H] pads N = 4 -> 128 (32x).  Transposed, every matmul
-# has N = ET (full lanes) and M = the small feature width (sublanes):
-#
-#   gsrc_t = [h ‖ a_s]^T @ oh_src^T          [HD+H, ET]
-#   gdst_t = [ḡ ‖ a_d ‖ 1/den ‖ s2]^T @ oh_dst^T   [HD+3H, ET]
-#   te     = per-head sublane reduction of ḡ_t * h_t   [H, ET]
-#   dz     = alpha (te - s2) leaky'          [H, ET]
-#   dad    += dz  @ oh_dst                   [H, R]   (contract the ET axis)
-#   das‖dh += [dz ; repeat(alpha) * ḡ_t] @ oh_row    [H+HD, R]
-#
-# Feature panels use the INTERLEAVED head-minor layout (feature i belongs
-# to head i % H) so alpha's head->feature expansion is an exact
-# pltpu.repeat (tile semantics x[i % n] — the r4 forward trick) and the
-# te head-sum is a [D, H, ET] sublane-group reduction.  Same constraint
-# as the forward transposed kernels: out blocks are [*, R], so
-# block_rows % 128 == 0 (or a single row block).
-# ---------------------------------------------------------------------------
-
-
-def _gat_bwd_dad_kernel_tt(
-    rb_ref, cb_ref,
-    src_ref, dst_ref, wgt_ref,
-    hcat_ref, dpack_ref, msrc_ref, o_ref, acc_ref,
-    *, R: int, C: int, ET: int, H: int, HD: int, slope: float, precision,
-):
-    """dad over the forward tiling, transposed dataflow: out [H, R]."""
-    D = HD // H
-    t = pl.program_id(0)
-    T = pl.num_programs(0)
-    prev_rb = jnp.where(t == 0, -1, rb_ref[jnp.maximum(t - 1, 0)])
-    next_rb = jnp.where(t == T - 1, -1, rb_ref[jnp.minimum(t + 1, T - 1)])
-
-    @pl.when(rb_ref[t] != prev_rb)
-    def _reset():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    @pl.when(cb_ref[t] >= 0)
-    def _compute():
-        src = src_ref[0, 0, :].astype(jnp.int32)
-        dst = dst_ref[0, 0, :].astype(jnp.int32)
-        dt = hcat_ref.dtype
-
-        src_b = jax.lax.broadcast_in_dim(src, (C, ET), (1,))
-        oh_src_t = (src_b == jax.lax.broadcasted_iota(
-            jnp.int32, (C, ET), 0)).astype(dt)                # [C, ET]
-        dst_b = jax.lax.broadcast_in_dim(dst, (R, ET), (1,))
-        oh_dst_t = (dst_b == jax.lax.broadcasted_iota(
-            jnp.int32, (R, ET), 0)).astype(dt)                # [R, ET]
-
-        gsrc = jnp.dot(hcat_ref[:], oh_src_t,
-                       preferred_element_type=jnp.float32,
-                       precision=precision)                   # [HD+H, ET]
-        hs = gsrc[:HD, :]
-        a_se = gsrc[HD:, :]
-        gdst = jnp.dot(dpack_ref[:], oh_dst_t,
-                       preferred_element_type=jnp.float32,
-                       precision=precision)                   # [HD+3H, ET]
-        gbar_e = gdst[:HD, :]
-        a_de = gdst[HD:HD + H, :]
-        rden_e = gdst[HD + H:HD + 2 * H, :]
-        s2e = gdst[HD + 2 * H:, :]
-
-        def leaky(v):
-            return jnp.where(v >= 0, v, slope * v)
-
-        lraw = a_se + a_de                                    # [H, ET]
-        bound = leaky(msrc_ref[:, 0][:, None] + a_de)
-        dmat = jax.lax.broadcast_in_dim(dst, (H, ET), (1,))
-        p = jnp.where(dmat < R,
-                      jnp.exp(jnp.minimum(leaky(lraw) - bound, 60.0)), 0.0)
-        wmat = jax.lax.broadcast_in_dim(
-            wgt_ref[0, 0, :].astype(jnp.float32), (H, ET), (1,))
-        alpha = p * wmat * rden_e                             # [H, ET]
-
-        # te: per-head sublane-group reduction over the INTERLEAVED
-        # layout (feature k*H + h is head h's k-th dim)
-        te = jnp.sum((gbar_e * hs).reshape(D, H, ET), axis=0)  # [H, ET]
-
-        dl = alpha * (te - s2e)
-        dz = dl * jnp.where(lraw >= 0, 1.0, slope)            # [H, ET]
-
-        acc_ref[:] += jax.lax.dot_general(
-            dz.astype(dt), oh_dst_t, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision)                              # [H, R]
-
-    @pl.when(next_rb != rb_ref[t])
-    def _publish():
-        o_ref[:] = acc_ref[:]
-
-
-def _gat_bwd_dsrc_kernel_tt(
-    rb_ref, cb_ref,
-    src_ref, dst_ref, wgt_ref,
-    dpack_ref, hcat_ref, msrc_ref, o_ref, acc_ref,
-    *, R: int, C: int, ET: int, H: int, HD: int, slope: float, precision,
-):
-    """[das ‖ dh] over the TRANSPOSED tiling, transposed dataflow:
-    out [H + HD, R] (rows = original senders; dh rows interleaved —
-    caller un-interleaves)."""
-    D = HD // H
-    t = pl.program_id(0)
-    T = pl.num_programs(0)
-    prev_rb = jnp.where(t == 0, -1, rb_ref[jnp.maximum(t - 1, 0)])
-    next_rb = jnp.where(t == T - 1, -1, rb_ref[jnp.minimum(t + 1, T - 1)])
-
-    @pl.when(rb_ref[t] != prev_rb)
-    def _reset():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    @pl.when(cb_ref[t] >= 0)
-    def _compute():
-        dloc = src_ref[0, 0, :].astype(jnp.int32)   # original dst (cols)
-        sloc = dst_ref[0, 0, :].astype(jnp.int32)   # original src (rows)
-        dt = hcat_ref.dtype
-
-        col_b = jax.lax.broadcast_in_dim(dloc, (C, ET), (1,))
-        oh_col_t = (col_b == jax.lax.broadcasted_iota(
-            jnp.int32, (C, ET), 0)).astype(dt)                # [C, ET]
-        row_b = jax.lax.broadcast_in_dim(sloc, (R, ET), (1,))
-        oh_row_t = (row_b == jax.lax.broadcasted_iota(
-            jnp.int32, (R, ET), 0)).astype(dt)                # [R, ET]
-
-        gdst = jnp.dot(dpack_ref[:], oh_col_t,
-                       preferred_element_type=jnp.float32,
-                       precision=precision)                   # [HD+3H, ET]
-        gbar_e = gdst[:HD, :]
-        a_de = gdst[HD:HD + H, :]
-        rden_e = gdst[HD + H:HD + 2 * H, :]
-        s2e = gdst[HD + 2 * H:, :]
-        grow = jnp.dot(hcat_ref[:], oh_row_t,
-                       preferred_element_type=jnp.float32,
-                       precision=precision)                   # [HD+H, ET]
-        hs = grow[:HD, :]
-        a_se = grow[HD:, :]
-
-        def leaky(v):
-            return jnp.where(v >= 0, v, slope * v)
-
-        lraw = a_se + a_de
-        bound = leaky(msrc_ref[:, 0][:, None] + a_de)
-        smat = jax.lax.broadcast_in_dim(sloc, (H, ET), (1,))
-        p = jnp.where(smat < R,
-                      jnp.exp(jnp.minimum(leaky(lraw) - bound, 60.0)), 0.0)
-        wmat = jax.lax.broadcast_in_dim(
-            wgt_ref[0, 0, :].astype(jnp.float32), (H, ET), (1,))
-        alpha = p * wmat * rden_e                             # [H, ET]
-
-        te = jnp.sum((gbar_e * hs).reshape(D, H, ET), axis=0)  # [H, ET]
-        dl = alpha * (te - s2e)
-        dz = dl * jnp.where(lraw >= 0, 1.0, slope)            # [H, ET]
-
-        # alpha head->feature expansion: exact interleaved tile-repeat
-        afull = alpha if HD == H else pltpu.repeat(alpha, D, axis=0)
-        v = jnp.concatenate([dz, afull * gbar_e], axis=0).astype(dt)
-        acc_ref[:] += jax.lax.dot_general(
-            v, oh_row_t, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision)                              # [H+HD, R]
-
-    @pl.when(next_rb != rb_ref[t])
-    def _publish():
-        o_ref[:] = acc_ref[:]
-
-
-# Transposed-backward toggle: the dispatch falls back to the wide kernels
-# when the tiling geometry violates the %128 lane constraint
-GAT_BWD_T = True
-
-
-# Fused tile-domain backward toggle (A/B escape hatch: the r3 per-head
-# [E]-pipeline backward remains available by setting this False)
-FUSED_BWD = True
-
-
-def gat_attention(
-    tg: TiledGraph,
-    h_src: jax.Array,
-    a_src: jax.Array = None,
-    a_dst: jax.Array = None,
-    heads: int = 1,
-    negative_slope: float = 0.2,
-    interpret: bool = False,
-    w_asrc: jax.Array = None,
-    g=None,
-    tg_t=None,
-    ev_perm_t: jax.Array = None,
-    guard_shift: bool = False,
-) -> jax.Array:
-    """Fused multi-head GAT edge-softmax + aggregation.  [N,HD],[N,H],[N,H]
-    -> [N,HD] f32.  Forward = Pallas online-softmax kernel.  Pass
-    ``w_asrc`` [HD,H] instead of ``a_src`` when a_src is a linear map of h
-    (the values are derived by one tiny XLA matmul and packed into the
-    kernel's gather operand).
-
-    Backward: default = autodiff of the XLA segment formulation
-    (numerically identical result, so the VJP is exact — but it
-    materialises [slots, HD], fatal at full-batch Reddit).  Passing
-    ``g`` + ``tg_t`` (unit-weight tiling of the transposed graph) +
-    ``ev_perm_t`` (transpose_host_graph's perm) switches to the tiled
-    backward (:func:`_gat_bwd_scalable`): [E, H] edge tensors only.
-
-    ``guard_shift`` (needs ``g``): runtime-check the shift-bound domain
-    (gat_shift_gap) and lax.cond-dispatch to the exact per-row segment-max
-    XLA path when any row's incident a_src sits > SHIFT_GAP_SAFE below the
-    global max — the adversarial-logit regime where the kernels' bound
-    underflows (module docstring 'Bound domain').  Both branches compile;
-    intended for serving at small/medium scale — at Reddit scale pre-check
-    the gap offline instead."""
-    scalable = g is not None and tg_t is not None and ev_perm_t is not None
-    assert not guard_shift or g is not None, "guard_shift needs g"
-    # fused tile-domain backward: needs plain fwd + transposed tilings and
-    # the kernel (not guarded-XLA) forward so the saved den matches
-    fused = (scalable and FUSED_BWD and not guard_shift
-             and type(tg) is TiledGraph and type(tg_t) is TiledGraph)
-    fn = _gat_vjp(float(negative_slope), bool(interpret),
-                  w_asrc is not None, scalable, fused, bool(guard_shift))
-    sw = w_asrc if w_asrc is not None else a_src
-    return fn(h_src, sw, a_dst, tg, tg_t, g, ev_perm_t)
-
-
-def _zero_cot(tree):
-    """Cotangents for non-differentiable pytree args of the gat custom_vjp
-    (tilings, graph, perm): float0 for integer/bool leaves, zeros for float
-    leaves (DCE'd under jit — nothing consumes them)."""
-    import jax.dtypes as _jdt
-
-    def z(x):
-        if x is None:
-            return None
-        if jnp.issubdtype(jnp.asarray(x).dtype, jnp.inexact):
-            return jnp.zeros_like(x)
-        return np.zeros(jnp.shape(x), _jdt.float0)
-    return jax.tree.map(z, tree)
-
-
-@functools.lru_cache(maxsize=None)
-def _gat_vjp(slope: float, interpret: bool, wmode: bool, scalable: bool,
-             fused: bool, guard: bool):
-    """Module-level custom_vjp for :func:`gat_attention`, built per static
-    config.  The tilings / graph / transpose perm are THREADED AS ARGUMENTS
-    (pytrees) instead of closed over — closing over traced arrays breaks
-    ``jax.checkpoint`` (UnexpectedTracerError / constant-handler TypeError,
-    the r3 remat blocker).  Their cotangents are structural zeros."""
-
-    def run_kernel(tg, h, s, d, w):
-        return _gat_forward(tg, h, s, d, w_asrc=w, negative_slope=slope,
-                            interpret=interpret)
-
-    def primal(h, sw, d, tg, g):
-        w, s = (sw, None) if wmode else (None, sw)
-        if not guard:
-            return run_kernel(tg, h, s, d, w)
-        sv = (jnp.dot(h.astype(jnp.float32), w.astype(jnp.float32))
-              if w is not None else s)
-        gap = gat_shift_gap(g, sv)
-        return jax.lax.cond(
-            gap < SHIFT_GAP_SAFE,
-            lambda hh: run_kernel(tg, hh, s, d, w),
-            lambda hh: _gat_reference(tg, hh, sv, d, slope),
-            h)
-
-    @jax.custom_vjp
-    def f(h, sw, d, tg, tg_t, g, perm_t):
-        return primal(h, sw, d, tg, g)
-
-    def fwd(h, sw, d, tg, tg_t, g, perm_t):
-        if fused:
-            # raw (num ‖ den) kernel output: den rides to the backward
-            HDv = h.shape[1]
-            w, s = (sw, None) if wmode else (None, sw)
-            raw = _gat_forward(tg, h, s, d, w_asrc=w, negative_slope=slope,
-                               interpret=interpret, normalize=False)
-            den = raw[:, HDv:]
-            y = raw[:, :HDv] / jnp.maximum(
-                jnp.repeat(den, HDv // den.shape[1], axis=1), 1e-20)
-            return y, (h, sw, d, y, den, tg, tg_t, g, perm_t)
-        y = primal(h, sw, d, tg, g)
-        return y, (h, sw, d, y, None, tg, tg_t, g, perm_t)
-
-    def bwd(res, gy):
-        h, sw, d, y, den, tg, tg_t, g, perm_t = res
-        aux = (_zero_cot(tg), _zero_cot(tg_t), _zero_cot(g),
-               _zero_cot(perm_t))
-        if fused and wmode:
-            w = sw
-            # two a_s twins: the XLA one the forward's msrc bound saw
-            # (DEFAULT precision) and the in-kernel derive one the logits
-            # saw (HIGHEST when f32 — see _gat_bwd_fused doc)
-            a_sx = jnp.dot(h, w.astype(h.dtype),
-                           preferred_element_type=jnp.float32)
-            kprec = (jax.lax.Precision.HIGHEST if h.dtype == jnp.float32
-                     else jax.lax.Precision.DEFAULT)
-            a_sk = jnp.dot(h, w.astype(h.dtype),
-                           preferred_element_type=jnp.float32,
-                           precision=kprec)
-            dh, das, dad = _gat_bwd_fused(
-                tg, tg_t, h, a_sk, d, den, y, gy, slope, interpret,
-                a_s_bound=a_sx)
-            dh = (dh.astype(jnp.float32)
-                  + jnp.dot(das.astype(jnp.float32),
-                            w.astype(jnp.float32).T,
-                            precision=kprec)).astype(h.dtype)
-            dw = jnp.dot(h.astype(jnp.float32).T, das.astype(jnp.float32),
-                         precision=kprec).astype(w.dtype)
-            return (dh, dw, dad.astype(d.dtype)) + aux
-        if fused:
-            dh, das, dad = _gat_bwd_fused(tg, tg_t, h, sw, d, den, y, gy,
-                                          slope, interpret)
-            return (dh, das.astype(sw.dtype), dad.astype(d.dtype)) + aux
-        if scalable and wmode:
-            w = sw
-            a_s = jnp.dot(h.astype(jnp.float32), w.astype(jnp.float32))
-            dh, das, dad = _gat_bwd_scalable(
-                g, tg, tg_t, perm_t, h, a_s, d, y, gy, slope, interpret)
-            dh = (dh.astype(jnp.float32)
-                  + jnp.dot(das.astype(jnp.float32),
-                            w.astype(jnp.float32).T)).astype(h.dtype)
-            dw = jnp.dot(h.astype(jnp.float32).T,
-                         das.astype(jnp.float32)).astype(w.dtype)
-            return (dh, dw, dad) + aux
-        if scalable:
-            dh, das, dad = _gat_bwd_scalable(
-                g, tg, tg_t, perm_t, h, sw, d, y, gy, slope, interpret)
-            return (dh, das, dad) + aux
-        if wmode:
-            _, vjp = jax.vjp(
-                lambda h_, w_, d_: _gat_reference(
-                    tg, h_, jnp.dot(h_.astype(jnp.float32),
-                                    w_.astype(jnp.float32)),
-                    d_, slope), h, sw, d)
-        else:
-            _, vjp = jax.vjp(
-                lambda h_, s_, d_: _gat_reference(tg, h_, s_, d_, slope),
-                h, sw, d)
-        return tuple(vjp(gy)) + aux
-
-    f.defvjp(fwd, bwd)
-    return f
-
-
-# ---------------------------------------------------------------------------
-# whole-layer mega-kernel: MMs + attention + activation in ONE pallas call
-# ---------------------------------------------------------------------------
-
-SHIFT = 12.0   # static softmax shift; see _gat_layer_kernel docstring
-
-
-def _sf_apply(v, sf: str, slope: float):
-    if sf == "identity":
-        return v
-    if sf == "relu":
-        return jnp.maximum(v, 0.0)
-    if sf == "elu":
-        # exp(v)-1 rather than expm1: Mosaic has no expm1 lowering.  The
-        # absolute error is bounded by ~1 ulp of 1.0 (~1.2e-7 f32) — the
-        # relative error near v=0- approaches 100%, but the absolute bound
-        # is far below bf16 resolution and the 1e-4 parity tolerance
-        return jnp.where(v > 0, v, jnp.exp(jnp.minimum(v, 0.0)) - 1.0)
-    if sf == "leaky_relu":
-        return jnp.where(v >= 0, v, slope * v)
-    raise ValueError(f"mega-kernel: unsupported sf {sf!r}")
-
-
-def _gat_layer_kernel(
-    rb_ref, cb_ref,
-    src_ref, dst_ref,
-    xc_ref, xr_ref, w_ref, was_ref, wad_ref,
-    o_ref,
-    den_ref, num_ref,
-    *, R: int, C: int, ET: int, H: int, HD: int, slope: float,
-    final_sf: str, precision,
-):
-    """One edge tile of the ENTIRE GAT layer.
-
-    Measurement showed layer latency on this part is op-count bound (~20us
-    per XLA op; latency barely moves between F=16 and F=128), so the three
-    MMs (h = X@W, a_src = h@wa_s, a_dst = h@wa_d) and the final activation
-    move inside: h/a blocks are recomputed per tile (C*F_in*HD MACs — noise
-    next to the one-hot matmuls), leaving the layer as essentially one
-    device op.
-
-    Softmax shift: a STATIC shift (p = exp(e - SHIFT), e clamped to
-    SHIFT+60) replaces the data-dependent bound — softmax is shift
-    invariant, exp stays finite, and no global-max prepass is needed.
-    Logits beyond the clamp saturate (they are already softmax-1 there).
-    """
-    t = pl.program_id(0)
-    prev_rb = jnp.where(t == 0, -1, rb_ref[jnp.maximum(t - 1, 0)])
-
-    @pl.when(rb_ref[t] != prev_rb)
-    def _reset():
-        den_ref[:] = jnp.zeros_like(den_ref)
-        num_ref[:] = jnp.zeros_like(num_ref)
-
-    src = src_ref[0, 0, :].astype(jnp.int32)
-    dst = dst_ref[0, 0, :].astype(jnp.int32)
-
-    w = w_ref[:]
-    h_cb = jnp.dot(xc_ref[:], w, preferred_element_type=jnp.float32,
-                   precision=precision)                       # [C, HD]
-    h_rb = jnp.dot(xr_ref[:], w, preferred_element_type=jnp.float32,
-                   precision=precision)                       # [R, HD]
-    dt = xc_ref.dtype
-    asrc_cb = jnp.dot(h_cb.astype(dt), was_ref[:],
-                      preferred_element_type=jnp.float32,
-                      precision=precision)                    # [C, H]
-    adst_rb = jnp.dot(h_rb.astype(dt), wad_ref[:],
-                      preferred_element_type=jnp.float32,
-                      precision=precision)                    # [R, H]
-
-    cols = jax.lax.broadcasted_iota(jnp.int32, (ET, C), 1)
-    oh_src = (src[:, None] == cols).astype(dt)                # [ET, C]
-    rows_er = jax.lax.broadcasted_iota(jnp.int32, (ET, R), 1)
-    oh_dst = (dst[:, None] == rows_er).astype(dt)             # [ET, R]
-
-    def scatter_rows(vals):
-        return jax.lax.dot_general(
-            oh_dst, vals.astype(dt), (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32, precision=precision)
-
-    a_s = jnp.dot(oh_src, asrc_cb.astype(dt),
-                  preferred_element_type=jnp.float32, precision=precision)
-    a_d = jnp.dot(oh_dst, adst_rb.astype(dt),
-                  preferred_element_type=jnp.float32, precision=precision)
-
-    def leaky(v):
-        return jnp.where(v >= 0, v, slope * v)
-
-    e = jnp.minimum(leaky(a_s + a_d), SHIFT + 60.0)
-    dmat = jax.lax.broadcast_in_dim(dst, (ET, H), (0,))
-    p = jnp.where(dmat < R, jnp.exp(e - SHIFT), 0.0)          # [ET, H]
-
-    den_ref[:] += scatter_rows(p)
-
-    hs = jnp.dot(oh_src, h_cb.astype(dt),
-                 preferred_element_type=jnp.float32, precision=precision)
-    brow = jax.lax.broadcasted_iota(jnp.int32, (H, HD), 0)
-    bcol = jax.lax.broadcasted_iota(jnp.int32, (H, HD), 1) // (HD // H)
-    B = (brow == bcol).astype(jnp.float32)
-    p_full = jnp.dot(p, B, preferred_element_type=jnp.float32,
-                     precision=jax.lax.Precision.HIGHEST)
-    num_ref[:] += scatter_rows(p_full * hs)
-
-    den_full = jnp.dot(jnp.maximum(den_ref[:], 1e-30), B,
-                       preferred_element_type=jnp.float32,
-                       precision=jax.lax.Precision.HIGHEST)
-    o_ref[:] = _sf_apply(num_ref[:] / den_full, final_sf, slope)
-
-
-def _gat_layer_forward(
-    tg: TiledGraph,
-    x: jax.Array,
-    w: jax.Array,         # [F_in, HD]
-    wa_src: jax.Array,    # [HD, H]
-    wa_dst: jax.Array,    # [HD, H]
-    *,
-    negative_slope: float = 0.2,
-    final_sf: str = "identity",
-    interpret: bool = False,
-    precision=None,
-) -> jax.Array:
-    HD = w.shape[1]
-    H = wa_src.shape[1]
-    F = x.shape[1]
-    assert HD % H == 0
-    if precision is None:
-        precision = (jax.lax.Precision.HIGHEST if x.dtype == jnp.float32
-                     else jax.lax.Precision.DEFAULT)
-    R, C, ET, T = tg.block_rows, tg.block_cols, tg.tile_edges, tg.n_tiles
-    n_cols = tg.n_col_blocks * C
-    n_rows = tg.n_row_blocks * R
-    n_max = max(n_cols, n_rows)
-    xp = jnp.zeros((n_max, F), x.dtype).at[: x.shape[0]].set(x)
-    wd = w.astype(x.dtype)
-    was = wa_src.astype(x.dtype)
-    wad = wa_dst.astype(x.dtype)
-
-    kernel = functools.partial(
-        _gat_layer_kernel, R=R, C=C, ET=ET, H=H, HD=HD,
-        slope=float(negative_slope), final_sf=final_sf, precision=precision)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-            pl.BlockSpec((1, 1, ET), lambda t, rb, cb: (t, 0, 0)),
-            pl.BlockSpec((C, F), lambda t, rb, cb: (cb[t], 0)),
-            pl.BlockSpec((R, F), lambda t, rb, cb: (rb[t], 0)),
-            pl.BlockSpec((F, HD), lambda t, rb, cb: (0, 0)),
-            pl.BlockSpec((HD, H), lambda t, rb, cb: (0, 0)),
-            pl.BlockSpec((HD, H), lambda t, rb, cb: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((R, HD), lambda t, rb, cb: (rb[t], 0)),
-        scratch_shapes=[
-            pltpu.VMEM((R, H), jnp.float32),
-            pltpu.VMEM((R, HD), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_rows, HD), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * T * ET * (C + R) * (H + HD) + 4 * T * C * F * HD,
-            bytes_accessed=xp.size * xp.dtype.itemsize,
-            transcendentals=T * ET * H,
-        ),
-        interpret=interpret,
-    )(tg.tile_rb, tg.tile_cb,
-      tg.src_local[:, None, :], tg.dst_local[:, None, :],
-      xp, xp, wd, was, wad)
-    return out[: tg.n_node]
-
-
-def _gat_layer_reference(tg, x, w, wa_src, wa_dst, negative_slope, final_sf):
-    h = jnp.dot(x.astype(jnp.float32), w.astype(jnp.float32))
-    a_s = jnp.dot(h, wa_src.astype(jnp.float32))
-    a_d = jnp.dot(h, wa_dst.astype(jnp.float32))
-    out = _gat_reference(tg, h, a_s, a_d, negative_slope)
-    return _sf_apply(out, final_sf, negative_slope)
-
-
-def gat_layer(
-    tg: TiledGraph,
-    x: jax.Array,
-    w: jax.Array,
-    wa_src: jax.Array,
-    wa_dst: jax.Array,
-    *,
-    negative_slope: float = 0.2,
-    final_sf: str = "identity",
-    interpret: bool = False,
-) -> jax.Array:
-    """One fused pallas call for the complete GAT layer (projection,
-    attention logits, softmax, aggregation, activation).  Backward = autodiff
-    of the XLA reference composition."""
-
-    @jax.custom_vjp
-    def f(x, w, ws, wd):
-        return _gat_layer_forward(
-            tg, x, w, ws, wd, negative_slope=negative_slope,
-            final_sf=final_sf, interpret=interpret)
-
-    def fwd(x, w, ws, wd):
-        return f(x, w, ws, wd), (x, w, ws, wd)
-
-    def bwd(res, g):
-        _, vjp = jax.vjp(
-            lambda *a: _gat_layer_reference(
-                tg, *a, negative_slope, final_sf), *res)
-        return vjp(g)
-
-    f.defvjp(fwd, bwd)
-    return f(x, w, wa_src, wa_dst)
-
-
-# ---------------------------------------------------------------------------
-# block matcher for the schedule lowerer
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass
-class GatLayerPlan:
-    x_op: int                # external input feeding the projection MM
-    w_name: str
-    was_name: str
-    wad_name: str
-    out_op: int              # the final activation op (block output)
-    heads: int
-    negative_slope: float
-    final_sf: str
-    ops: frozenset
-
-
-def match_gat_layer(graph: ir.OpGraph, block: Sequence[int]):
-    """Match an ENTIRE GAT layer: projection MM + attention-vector MMs +
-    the attention chain + final apply_node SF, covering the block exactly.
-    Lowered by the whole-layer mega-kernel (gat_layer)."""
-    chain = find_gat_chain(graph, block)
-    if chain is None:
-        return None
-    B = {o: graph.by_id[o] for o in block}
-    h_id, as_id, ad_id = chain.h_op, chain.asrc_op, chain.adst_op
-    for oid in (h_id, as_id, ad_id):
-        op = B.get(oid)
-        if op is None or op.kind != ir.APPLY_NODE or op.compute != ir.MM:
-            return None
-    h_op, as_op, ad_op = B[h_id], B[as_id], B[ad_id]
-    if as_op.inputs != [h_id] or ad_op.inputs != [h_id]:
-        return None
-    if len(h_op.inputs) != 1:
-        return None
-    # final activation consuming the chain output
-    sf_ops = [o for o, op in B.items()
-              if op.kind == ir.APPLY_NODE and op.compute == ir.SF
-              and op.inputs == [chain.out_op]]
-    if not sf_ops:
-        return None
-    sf_op = B[sf_ops[0]]
-    sf_name = sf_op.extra.get("sf", "relu")
-    if sf_name not in ("identity", "relu", "elu", "leaky_relu"):
-        return None
-    covered = chain.ops | {h_id, as_id, ad_id, sf_ops[0]}
-    if covered != frozenset(block):
-        return None
-    return GatLayerPlan(
-        x_op=h_op.inputs[0],
-        w_name=h_op.extra["weight"][0],
-        was_name=as_op.extra["weight"][0],
-        wad_name=ad_op.extra["weight"][0],
-        out_op=sf_ops[0],
-        heads=chain.heads,
-        negative_slope=chain.negative_slope,
-        final_sf=sf_name,
-        ops=covered,
-    )
 
 
 @dataclasses.dataclass

@@ -128,9 +128,9 @@ def binary_op(compute: str, a: jax.Array, b: jax.Array) -> jax.Array:
 
 
 def dense_mm(x: jax.Array, w: jax.Array, compute_dtype=None) -> jax.Array:
-    """X @ W on the MXU with f32 accumulation.
+    """X @ W on the tensor cores with f32 accumulation.
 
-    ``compute_dtype=jnp.bfloat16`` is the production policy (MXU-native);
+    ``compute_dtype=jnp.bfloat16`` is the production policy;
     None keeps the input dtype (used by the allclose correctness tests).
     """
     if compute_dtype is not None:

@@ -11,5 +11,5 @@ from .dist import (
     make_dist_apply,
     make_sharded_train_step,
     shard_part,
-    shard_tiles,
+    shard_csr,
 )

@@ -1,16 +1,15 @@
 """Multi-host bootstrap: ``jax.distributed`` initialization + the
-full-batch distributed training driver over a {hosts x local chips} mesh.
+full-batch distributed training driver over a {hosts x local devices} mesh.
 
 The reference is a single Python process with no distributed execution of
 any kind (SURVEY §2 parallelism audit); this module is the piece that
-lets the SAME training entry point run unchanged on a real multi-host
-pod: each host process calls :func:`init_multihost` (on Cloud TPU the
-coordinator/process count auto-detect from the TPU metadata; elsewhere
-pass them explicitly or via the standard JAX env vars), then
-:func:`train_multihost` builds the hierarchical 2-D partition
-(parallel/mesh2d.py — intra-host halo over ICI, deduped host exchange
-over DCN), shards every array with named shardings, and steps the jitted
-sharded train step.  With one process and N local (or virtual) devices
+lets the SAME training entry point run unchanged on several hosts: each
+host process calls :func:`init_multihost` with the coordinator address,
+process count and its own id (nothing on a GPU host describes the cluster
+to JAX), then :func:`train_multihost` builds the hierarchical 2-D
+partition (parallel/mesh2d.py — intra-host halo, deduped host exchange),
+shards every array with named shardings, and steps the jitted sharded
+train step.  With one process and N local (or virtual) devices
 the same code path degenerates to the 1-host row of the mesh — which is
 how the CPU virtual-mesh test drives it.
 """
@@ -26,31 +25,23 @@ def init_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> tuple:
-    """Initialize ``jax.distributed`` (idempotent) and return
+    """Initialize ``jax.distributed`` and return
     ``(process_index, process_count)``.
 
-    On Cloud TPU pods all three arguments auto-detect; on other fabrics
-    pass them (or set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID).  Safe to call in a single-process run: when the
-    runtime is already initialized (or there is nothing to initialize),
-    it degrades to (0, 1) instead of raising.
-    """
+    Pass all three arguments (e.g. ``localhost:<port>``, the process
+    count, this process's id).  With none given this is a single-process
+    run: nothing is initialized and the result is (0, 1)."""
     import jax
 
-    kw = {}
-    if coordinator_address:
-        kw["coordinator_address"] = coordinator_address
-    if num_processes is not None:
-        kw["num_processes"] = int(num_processes)
-    if process_id is not None:
-        kw["process_id"] = int(process_id)
-    try:
-        jax.distributed.initialize(**kw)
-    except (RuntimeError, ValueError) as e:
-        # already initialized, or single-process with no coordinator info —
-        # both are fine for the 1-host degenerate case
-        if num_processes not in (None, 1) and "already" not in str(e):
-            raise
+    args = (coordinator_address, num_processes, process_id)
+    if all(a is None for a in args):
+        return jax.process_index(), jax.process_count()
+    if any(a is None for a in args):
+        raise ValueError("init_multihost needs coordinator_address, "
+                         "num_processes and process_id together")
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=int(num_processes),
+                               process_id=int(process_id))
     return jax.process_index(), jax.process_count()
 
 

@@ -1,66 +1,25 @@
-"""Comm/compute overlap: TPU compiler options + scheduled-HLO evidence.
+"""Comm/compute overlap evidence from a scheduled HLO module.
 
 The reference has no distributed execution at all (SURVEY §2 "parallelism:
 none"); its only overlap notion is the *simulated* unit-level concurrency of
 the scoreboard (``vTCAD/code/simulator.py:223-244`` RAW/WAR credits letting
 the memory unit run under compute).  Here overlap is real and verifiable:
-XLA's latency-hiding scheduler plus async collective fusion rewrite the halo
-``all_to_all`` / hub ``all_gather`` into ``*-start``/``*-done`` pairs, and
-the scheduler hoists the start above the local-edge work (the Pallas
-SpMM/GAT kernels and local XLA chains, which depend only on ``x_local``) so
-the ICI transfer rides under compute.
+when XLA's scheduler turns the halo ``all_to_all`` / hub ``all_gather`` /
+gradient ``all_reduce`` into ``*-start``/``*-done`` pairs, it may place the
+local-edge work (the CSR kernels and local XLA chains, which depend only on
+``x_local``) between them, so the transfer rides under compute.
 
-Two pieces:
-
-* :data:`TPU_OVERLAP_OPTIONS` / :func:`overlap_compiler_options` — the XLA
-  option set that enables the rewrite (validated against libtpu; unknown
-  options are rejected at compile time, so these fail loudly if libtpu
-  drops them).
-* :func:`overlap_report` — parses a *scheduled* post-optimization HLO dump
-  (``compiled.as_text()``) and, for every async start/done pair, reports
-  what the scheduler actually placed between the two: instruction count,
-  opcode histogram, and the summed TPU cost-model ``estimated_cycles`` of
-  the straddled compute.  This is measured compiler evidence (the schedule
-  is what the chip executes), not a "by dependence" claim.
+:func:`overlap_report` parses a *scheduled* post-optimization HLO dump
+(``compiled.as_text()``) and, for every async start/done pair, reports what
+the scheduler actually placed between the two: instruction count, opcode
+histogram, and the summed cost-model ``estimated_cycles`` of the straddled
+compute where the backend annotates it.  This is compiler evidence (the
+schedule is what the device executes), not a "by dependence" claim.
 """
 from __future__ import annotations
 
 import re
 from typing import Dict, List, Optional
-
-# Options verified against the in-image libtpu (compile() validates names —
-# a garbage option raises INVALID_ARGUMENT, so acceptance is meaningful).
-TPU_OVERLAP_OPTIONS: Dict[str, str] = {
-    # lower all-to-all to the async start/done form
-    "xla_tpu_enable_async_all_to_all": "true",
-    # fuse independent compute into the async window
-    "xla_tpu_enable_async_collective_fusion": "true",
-    "xla_tpu_enable_async_collective_fusion_fuse_all_gather": "true",
-    # the data-parallel gradient psum (replicated-param transpose)
-    "xla_tpu_enable_async_collective_fusion_fuse_all_reduce": "true",
-    # let the Pallas kernels (mosaic custom-calls) sit inside the window
-    "xla_tpu_enable_async_collective_fusion_with_mosaic_custom_call": "true",
-    # schedule to hide collective latency under compute
-    "xla_tpu_enable_latency_hiding_scheduler": "true",
-}
-
-
-def overlap_compiler_options() -> Optional[Dict[str, str]]:
-    """The option dict on a TPU backend, else None (CPU virtual meshes /
-    interpret-mode tests reject TPU-only options).
-
-    Escape hatch: ``GTA_NO_OVERLAP_OPTIONS=1`` returns None even on TPU —
-    the options fail loudly (INVALID_ARGUMENT at compile) on a libtpu that
-    drops/renames any ``xla_tpu_*`` flag, and this decouples distributed
-    training from flag stability without a code change."""
-    import os
-
-    import jax
-
-    if os.environ.get("GTA_NO_OVERLAP_OPTIONS"):
-        return None
-    return dict(TPU_OVERLAP_OPTIONS) if jax.default_backend() == "tpu" else None
-
 
 # ``%name = <type> opcode(...)`` — opcode is the first lowercase token after
 # the result type; types/layouts never contain '('.
@@ -97,7 +56,8 @@ def overlap_report(hlo_text: str) -> dict:
     Returns ``{"pairs": [...], "n_async": int, "n_sync_collectives": int,
     "overlapped_cycles": int}`` where each pair entry carries the collective
     opcode, the straddled instruction count, an opcode histogram, and the
-    summed ``estimated_cycles`` of straddled compute (TPU cost model).
+    summed ``estimated_cycles`` of straddled compute (0 when the backend
+    writes no such annotation).
     Instructions are taken in SCHEDULE order (``is_scheduled=true`` modules
     list them in execution order), so "between start and done" is literally
     the window the transfer has to hide in.

@@ -1,11 +1,11 @@
 """Spatial graph partitioning with a static halo-exchange plan.
 
 The reference is strictly single-device (SURVEY §2 "Parallelism strategies:
-none"); multi-chip execution is new design.  The scheme here is the standard
-1-D vertex partition with halo (ghost) vertices, laid out for TPU constraints:
-every shard gets *identical static shapes*, so one shard_map-traced program
-serves all devices, and the boundary feature exchange is a single
-``lax.all_to_all`` over the mesh axis (ICI within a slice, DCN across hosts).
+none"); multi-device execution is new design.  The scheme here is the
+standard 1-D vertex partition with halo (ghost) vertices: every shard gets
+*identical static shapes*, so one shard_map-traced program serves all
+devices, and the boundary feature exchange is a single ``lax.all_to_all``
+over the mesh axis (NVLink inside a host, the network across hosts).
 
 Partition invariants (D shards):
   * node space padded to D * n_local; shard d owns [d*n_local, (d+1)*n_local);
@@ -251,7 +251,7 @@ def community_partition_order(g, labels, n_shards: int, *,
 
     Within a shard, nodes order degree-descending inside each community
     with the shard's degree head first (the per-shard twin of
-    graph.reorder_nodes 'hubs+labels') so the LOCAL tilings densify.
+    graph.reorder_nodes 'hubs+labels') so LOCAL gathers stay close.
 
     Returns (perm, shard_of_community).  Apply with
     ``reorder_nodes(g, 'perm', perm=perm)`` or by relabelling edges with

@@ -1,23 +1,23 @@
 """Quantized boundary-feature exchange: int8 payloads on the wire.
 
-The Reddit halo is measured SATURATED (results/reddit_partition.json:
-every shard pair's boundary covers ~all of n_local, 455 MiB/layer at
-bf16, unchanged by community packing) — the remaining lever on exchange
-bytes is the per-element width.  These wrappers transmit the halo as
+The halo of a 1-D partition of the Reddit-scale graph is saturated:
+every shard pair's boundary covers nearly all of n_local
+(PartitionedGraph.comm_report), and community packing does not shrink
+it — the remaining lever on exchange bytes is the per-element width.  These wrappers transmit the halo as
 symmetric per-row int8 (one f32 scale per boundary row, F/2 + 4 bytes
 per bf16 row ≈ a 2x cut; 4x from f32), dequantizing on arrival.
 
 Gradient semantics: straight-through.  ``all_to_all`` (equal splits on
 one axis) is its own adjoint — a block permutation — so the backward
 pass runs the SAME quantized exchange on the cotangents (the gradient
-halo also rides int8; both directions of DCN/ICI traffic halve).  The
+halo also rides int8; both directions of the link traffic halve).  The
 round() itself uses the straight-through estimator, standard for
 quantized training: the quantization noise (<= 0.8% of the per-row max
 per element) is treated as additive noise, not differentiated through.
 ``all_gather``'s adjoint is a reduce-scatter SUM, which cannot sum
 payloads carrying different scales in-network, so the hub path
-quantizes the forward only and keeps the (small — 12 MiB vs the 455 MiB
-halo) cotangent reduction in the compute dtype.
+quantizes the forward only and keeps the (small next to the halo)
+cotangent reduction in the compute dtype.
 
 The reference has no distributed execution at all (SURVEY §2); the
 design follows standard quantized-allreduce practice from distributed

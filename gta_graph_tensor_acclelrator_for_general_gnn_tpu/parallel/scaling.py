@@ -1,32 +1,27 @@
-"""Predicted multi-chip/multi-host scaling efficiency.
+"""Predicted multi-device/multi-host scaling efficiency.
 
-This environment has ONE physical TPU chip, so the BASELINE ">= 80%
-edges/s scaling efficiency" target cannot be *measured* here — but every
-constant it depends on IS measured: single-chip edge rates
-(results/SUMMARY.md), per-plan ICI/DCN byte counts (the partition plans'
-``comm_report``, results/reddit_partition.json), interconnect bandwidths
-(hwconfig ici_gbps/dcn_gbps), and the comm/compute overlap the AOT
-schedule actually achieves (results/overlap_hlo.json).  This module
-closes the loop the reference's simulator closed for its fictional chip
-(vTCAD/code/start.py:57-58 always printed the headline predictive
-number): a roofline-style prediction of per-layer step time and scaling
-efficiency per partition plan.
+A roofline-style prediction of per-layer step time and scaling efficiency
+per partition plan, from a single-device edge rate, the plan's per-device
+exchange bytes (the partition plans' ``comm_report``), link bandwidths and
+the comm/compute overlap the compiled schedule achieves
+(:func:`overlap_fraction` over :func:`~.overlap.overlap_report`).  It plays
+the role the reference's simulator played for its fictional chip
+(vTCAD/code/start.py:57-58 always printed the headline predictive number);
+a measured four-device step replaces it wherever one exists.
 
 Model (per GNN layer, D shards):
 
   t_comp = (n_edge * balance / D) / edges_per_s_chip
-  t_ici  = per-chip ICI egress bytes / ici_gbps
-  t_dcn  = per-host DCN egress bytes / dcn_gbps
+  t_ici  = per-device link egress bytes / ici_gbps   (inside a host)
+  t_dcn  = per-host egress bytes / dcn_gbps          (between hosts)
   t_comm = max(t_ici, t_dcn)                 (separate networks)
   t_step(ov) = ov * max(t_comp, t_comm) + (1 - ov) * (t_comp + t_comm)
 
   efficiency(ov) = (n_edge / edges_per_s_chip) / (D * t_step(ov))
 
-``ov`` in [0, 1] is the overlapped fraction of the collective windows; the
-measured value comes from :func:`overlap_fraction` over the scheduled-HLO
-report (zero when the async options are off — measured, results/
-overlap_hlo.json baseline rows).  Both bounds (ov=0, ov=1) are reported so
-the prediction carries its own uncertainty interval.
+``ov`` in [0, 1] is the overlapped fraction of the collective windows.
+Both bounds (ov=0, ov=1) are reported so the prediction carries its own
+uncertainty interval.
 """
 from __future__ import annotations
 
@@ -36,8 +31,7 @@ from ..hwconfig import HwConfig, load_hw_config
 
 
 def overlap_fraction(report: dict) -> float:
-    """Measured overlap fraction from an ``overlap_report`` dict (or the
-    saved results/overlap_hlo.json per-config entry): the summed compute
+    """Overlap fraction from an ``overlap_report`` dict: the summed compute
     cycles the scheduler placed inside async collective windows, over the
     summed window span — 0.0 when no async collectives exist."""
     pairs = report.get("pairs", [])
@@ -62,37 +56,42 @@ def predicted_scaling(
     partition plan.
 
     ``plan``: a dict in the shape the partition builders report
-    (scripts/reddit_partition.py / PartitionedGraph.comm_report /
-    Mesh2DPlan.comm_report):
+    (PartitionedGraph.comm_report / Mesh2DPlan.comm_report):
 
-      1-D (single host, D chips over ICI):
+      1-D (single host, D devices):
         n_shards, halo_bytes, hub_bytes (optional), edge_balance (optional)
       2-D (hosts x chips):
         mesh [Dh, Dc], ici_bytes, dcn_bytes, edge_balance (optional)
 
-    ``edges_per_s_chip``: the measured single-chip rate for this op at
-    this feature width (e.g. reddit SpMM 1.2e9 — BENCH_r*.json).
+    ``edges_per_s_chip``: the measured single-device rate for this op at
+    this feature width.
     ``overlap``: fraction of comm hidden under compute; pass
     :func:`overlap_fraction` of a measured schedule report for the
     evidence-backed value.  Returns a dict with t_comp/t_ici/t_dcn (s),
     efficiency at ``overlap`` and at both bounds.
     """
     hw = hw or load_hw_config()
+    ici = hw.ici_gbps
+    if ici is None:
+        from ..hwconfig import device_peaks
+        ici = device_peaks()["link_gbps"]
     balance = float(plan.get("edge_balance", 1.0))
     if "mesh" in plan:
         dh, dc = (int(v) for v in plan["mesh"])
         d = dh * dc
         ici_bytes = float(plan.get("ici_bytes", 0.0))
         dcn_bytes = float(plan.get("dcn_bytes", 0.0))
-        t_ici = (ici_bytes / d) / (hw.ici_gbps * 1e9)
+        t_ici = (ici_bytes / d) / (ici * 1e9)
         # DCN is a per-HOST resource: each host's NIC carries its chips'
         # inter-host traffic
+        if hw.dcn_gbps is None:
+            raise ValueError("a hosts x devices plan needs hw.dcn_gbps")
         t_dcn = (dcn_bytes / dh) / (hw.dcn_gbps * 1e9)
     else:
         d = int(plan["n_shards"])
         ici_bytes = float(plan.get("halo_bytes", 0.0)) + float(
             plan.get("hub_bytes", 0.0))
-        t_ici = (ici_bytes / d) / (hw.ici_gbps * 1e9)
+        t_ici = (ici_bytes / d) / (ici * 1e9)
         t_dcn = 0.0
     t_comp = (n_edge * balance / d) / edges_per_s_chip
     t_comm = max(t_ici, t_dcn)

@@ -1,5 +1,5 @@
 """Genetic schedule search (the reference's genetic_algorithm.py, re-based
-on measured TPU latency).
+on measured device latency).
 
 Genome = (fusion bitstring over the op-DAG's free edges, per-block
 TileConfig choice, kernel on/off).  Operators mirror the reference:
@@ -13,7 +13,7 @@ TileConfig choice, kernel on/off).  Operators mirror the reference:
   16-aligned :452-466);
 * selection: keep the ``n_parents`` fastest (choose_parents :629-642);
 * stop: best latency stable for ``stable_stop`` generations (:664-669);
-* prune: modelled HBM traffic bound + VMEM feasibility before measuring
+* prune: modelled HBM traffic bound + buffer feasibility before measuring
   (isOverflow/prune :108-265).
 """
 from __future__ import annotations
@@ -26,10 +26,10 @@ import numpy as np
 
 from .. import ir
 from ..compiler import schedule as S
-from ..compiler.fusion import KERNEL_VERSION, lower_schedule, match_spmm
+from ..compiler.fusion import lower_schedule, match_spmm
 from ..graph import HostGraph
-from ..utils.benchmark import time_layer_device
-from .search import Memo, Measurement, TILE_PALETTE, TuneResult
+from ..utils.benchmark import time_apply
+from .search import Memo, Measurement, TuneResult, memo_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +40,7 @@ class Genome:
                                    # genetic_algorithm.py:452-466); indexed
                                    # by pattern-block ordinal, last entry
                                    # reused if the partition grows
-    kernels: bool                  # dispatch pattern blocks to Pallas?
+    kernels: bool                  # dispatch pattern blocks to kernels?
     use_pattern: bool              # replace chain with the super-block?
 
 
@@ -62,7 +62,6 @@ class GeneticTuner:
         iters: int = 30,
         warm_start: Optional[Sequence[S.Schedule]] = None,
         derive_palette: bool = False,
-        target_s: float = 0.2,
     ):
         self.graph = graph
         self.hg = host_graph
@@ -86,7 +85,6 @@ class GeneticTuner:
         self.stable_stop = stable_stop
         self.traffic_prune = traffic_prune
         self.iters = iters
-        self.target_s = target_s
 
         self.edges = graph.edges()
         self.free = [e for e in self.edges
@@ -245,23 +243,17 @@ class GeneticTuner:
 
     # -- fitness ------------------------------------------------------------
     def _measure(self, sched: S.Schedule, params, g_dev, x) -> float:
-        key = f"v{KERNEL_VERSION}|{self.graph.name}|{sched.key()}"
+        key = memo_key(self.graph, sched)
         lat = self.memo.get(key)
         if lat is not None:
             return lat
         fw = max(op.out_width for op in self.graph.ops)
-        if any(tc.path == S.PATH_ONEHOT and not S.tile_is_feasible(tc, fw)
+        if any(tc.path == S.PATH_CSR and not S.tile_is_feasible(tc, fw)
                for tc in sched.tiles):
             return float("inf")
-        try:
-            fn = lower_schedule(self.graph, sched, self.hg, self.dtype)
-            lat = time_layer_device(fn, params, g_dev, x,
-                                    k_small=50, k_big=50 + self.iters,
-                                    reps=2, target_s=self.target_s)
-        except Exception:
-            lat = float("inf")
-        if np.isfinite(lat):
-            self.memo.put(key, lat)
+        fn = lower_schedule(self.graph, sched, self.hg, self.dtype)
+        lat = time_apply(fn, params, g_dev, x, iters=self.iters)
+        self.memo.put(key, lat)
         return lat
 
     # -- main loop ----------------------------------------------------------

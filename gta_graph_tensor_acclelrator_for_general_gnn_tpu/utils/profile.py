@@ -24,7 +24,7 @@ from ..compiler import schedule as S
 
 
 @contextlib.contextmanager
-def trace(outdir: str = "/tmp/gta_trace"):
+def trace(outdir: str):
     """Capture a profiler trace: ``with trace('dir'): fn(...)``."""
     jax.profiler.start_trace(outdir)
     try:

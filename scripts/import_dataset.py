@@ -1,4 +1,5 @@
-import sys; sys.path.insert(0, "/root/repo")
+import os, sys  # noqa: E401
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 """Import real GNN benchmark datasets into the loader's npz schema.
 
 This environment has zero network egress, so the published Planetoid /

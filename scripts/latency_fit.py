@@ -1,66 +1,78 @@
-import sys; sys.path.insert(0, "/root/repo")
 """Fit the latency-model constants (compiler/latency.py LatencyConstants)
-on hardware: measures XLA's dynamic take / segment_sum per-edge-row costs
-and the per-op constant at a few (E, F) points, prints fitted values.
+to the tuner's measured memo rows.
 
-Run when kernels or the XLA/libtpu version change, then update
-LatencyConstants; scripts/latency_check.py validates the resulting ranking
-against the memoised measured schedules.
+Every schedule reduces to the model's counts (latency.schedule_counts); the
+measured latency of each memo row is fitted as a non-negative combination
+of those counts (scipy.optimize.nnls), and the result printed as the
+``LatencyConstants`` defaults to paste, with the rank check of each memo.
 
-Usage: python scripts/latency_fit.py
+Run after regenerating the memos on the device the model is calibrated for
+(compiler/latency.CALIBRATED_DEVICE):
+
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu.cli tune \\
+        --dataset flickr --network GCN --hidden 128 --heads 4 \\
+        --memo results/memo_GCN_flickr.csv   (GAT, and --dataset cora)
+    python -m gta_graph_tensor_acclelrator_for_general_gnn_tpu.cli tune \\
+        --dataset reddit --communities 1000 --seed 1 --network GCN \\
+        --hidden 128 --heads 4 --iters 5 --memo results/memo_GCN_reddit.csv
+    python scripts/latency_fit.py
+
+The Reddit-scale rows are what let the model see the per-edge costs: on
+Cora and Flickr fixed and per-row costs dominate every candidate.  The
+fit reads that graph's sizes from latency.LARGE_MEMO_GRAPHS instead of
+drawing its 114.6M edges again.
 """
-import numpy as np
-import jax
+import os
+import sys
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-import jax.numpy as jnp
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
-from gta_graph_tensor_acclelrator_for_general_gnn_tpu.utils.benchmark import (
-    time_layer_device)
+import numpy as np  # noqa: E402
+from scipy.optimize import nnls  # noqa: E402
 
-N = 8192
-rng = np.random.default_rng(0)
+import gta_graph_tensor_acclelrator_for_general_gnn_tpu as gta  # noqa: E402
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu.compiler import (  # noqa: E402,E501
+    latency as L)
 
-rows = []
-for E in (16384, 131072, 1048576):
-    for F in (128, 256):
-        src = jax.device_put(jnp.asarray(
-            rng.integers(0, N, E), jnp.int32))
-        dst = jax.device_put(jnp.asarray(
-            np.sort(rng.integers(0, N, E)), jnp.int32))
-        x = jax.device_put(jax.random.normal(
-            jax.random.key(1), (N, F), jnp.bfloat16))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# (memo, dataset, network) — the memos `cli tune --dataset D --network N
+# --hidden 128 --heads 4` writes; graph name "<N>-original-tune"
+CASES = [(f"results/memo_{net}_{ds}.csv", ds, net)
+         for ds in ("flickr", "cora", "reddit") for net in ("GCN", "GAT")]
 
-        def take_fn(p, g, xx):
-            s, d = g
-            y = jnp.take(xx, s, axis=0)
-            return jnp.zeros_like(xx).at[:E].set(y[:E] * 0 + y[:E])[:N]
 
-        def seg_fn(p, g, xx):
-            s, d = g
-            e = jnp.take(xx, s, axis=0)
-            return jax.ops.segment_sum(e, d, N, indices_are_sorted=True)
+def op_graph(network: str):
+    return gta.build_op_graph(network, 128, 128, heads=4, layer_tag="tune")
 
-        t_take = time_layer_device(
-            lambda p, g, xx: jnp.take(xx, g[0], axis=0)[
-                jnp.arange(N) % E][:N],
-            None, (src, dst), x, target_s=0.2, reps=2)
-        t_seg = time_layer_device(seg_fn, None, (src, dst), x,
-                                  target_s=0.2, reps=2)
-        lanes = max(F // 128, 1)
-        rows.append((E, F, t_take, t_seg))
-        print(f"E={E:8d} F={F}: take {t_take*1e6:8.1f} us "
-              f"({t_take*1e9/E/lanes:.2f} ns/row/lane-group)  "
-              f"take+segsum {t_seg*1e6:8.1f} us "
-              f"({t_seg*1e9/E/lanes:.2f} ns/row/lane-group)", flush=True)
 
-# slope fit across E at F=128 (per-op const = intercept)
-e_vals = np.array([r[0] for r in rows if r[1] == 128], float)
-seg = np.array([r[3] for r in rows if r[1] == 128], float) * 1e9
-A = np.vstack([e_vals, np.ones_like(e_vals)]).T
-coef, *_ = np.linalg.lstsq(A, seg, rcond=None)
-print(f"\nfit (take+segment_sum, F=128): "
-      f"{coef[0]:.2f} ns/row + {coef[1]/1e3:.1f} us const")
-print("split take vs segment using the take-only rows; update "
-      "LatencyConstants.xla_take_row_ns / xla_segment_row_ns / "
-      "xla_op_const_ns accordingly")
+def main():
+    rows, meas, graphs = [], [], []
+    for memo, ds, net in CASES:
+        stats = hg = L.memo_graph_stats(ds)
+        og = op_graph(net)
+        name = og.name
+        graphs.append((memo, name, og, hg))
+        for sched, secs in L.memo_rows(os.path.join(ROOT, memo), name):
+            rows.append(L.schedule_counts(og, sched, stats))
+            meas.append(secs * 1e9)
+    if not rows:
+        sys.exit("no memo rows for " + L.CALIBRATED_DEVICE)
+    a = np.array(rows)
+    b = np.array(meas)
+    # relative least squares: every row weighs the same whatever its size
+    coef, _ = nnls(a / b[:, None], np.ones_like(b))
+    print(f"# fitted on {len(b)} rows of {L.CALIBRATED_DEVICE}")
+    for f, c in zip(L.FEATURES, coef):
+        print(f"    {f}: float = {c:.6g}")
+    consts = L.LatencyConstants(**dict(zip(L.FEATURES, coef)))
+    for memo, name, og, hg in graphs:
+        r = L.rank_check(os.path.join(ROOT, memo), name, og, hg,
+                         constants=consts)
+        if r:
+            print(f"# {memo} {name}: rows {len(r['rows'])} spearman "
+                  f"{r['spearman']:.3f} regret {r['argmin_regret']:.3f}")
+
+
+if __name__ == "__main__":
+    main()

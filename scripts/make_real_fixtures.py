@@ -1,4 +1,5 @@
-import sys; sys.path.insert(0, "/root/repo")
+import os, sys  # noqa: E401
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 """Build the checked-in REAL-graph fixtures (no network needed — both
 datasets ship inside packages baked into the image):
 

@@ -6,10 +6,10 @@ from gta_graph_tensor_acclelrator_for_general_gnn_tpu import ir
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu.data.batching import (
     batch_features, batch_graphs, readout_mean)
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu.graph import (
-    build_host_graph, tile_graph)
+    build_host_graph, csr_graph)
 from gta_graph_tensor_acclelrator_for_general_gnn_tpu.ops import (
     primitives as P)
-from gta_graph_tensor_acclelrator_for_general_gnn_tpu.ops.spmm import spmm
+from gta_graph_tensor_acclelrator_for_general_gnn_tpu.ops.spmm import spmm_raw
 
 from conftest import small_graph
 
@@ -27,8 +27,7 @@ def test_batched_spmm_matches_per_graph(rng):
     assert bat.n_node == sum(g.n_node for g in gs)
     assert bat.n_edge == sum(g.n_edge for g in gs)
     xb = jnp.asarray(batch_features(xs))
-    tg = tile_graph(bat, block_rows=32, block_cols=32, tile_edges=64)
-    yb = np.asarray(spmm(tg, xb, interpret=True))[: bat.n_node]
+    yb = np.asarray(spmm_raw(csr_graph(bat), xb))[: bat.n_node]
     off = 0
     for g, x in zip(gs, xs):
         gd = g.to_device()

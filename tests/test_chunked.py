@@ -76,16 +76,48 @@ def test_gat_chunked_gradients(rng):
     def loss_stream(h, a1, a2):
         return jnp.sum(chunked.gat_chunked(g, h, a1, a2, chunk=64) ** 2)
 
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu.ops.gat import _gat_reference
-    from gta_graph_tensor_acclelrator_for_general_gnn_tpu.graph import tile_graph
-    tg = tile_graph(hg, block_rows=32, block_cols=32, tile_edges=64,
-                    unit_weight=True)
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu.ops.gat import (
+        gat_reference)
+    from gta_graph_tensor_acclelrator_for_general_gnn_tpu.graph import (
+        csr_graph)
+    cg = csr_graph(hg, unit_weight=True)
 
     def loss_ref(h, a1, a2):
-        return jnp.sum(_gat_reference(tg, h, a1, a2, 0.2) ** 2)
+        return jnp.sum(gat_reference(cg, h, a1, a2, 0.2) ** 2)
 
     gs = jax.grad(loss_stream, argnums=(0, 1, 2))(h, a1, a2)
     gr = jax.grad(loss_ref, argnums=(0, 1, 2))(h, a1, a2)
     for a, b in zip(gs, gr):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("spread", [10.0, 30.0])
+def test_gat_chunked_gradients_finite_under_wide_logit_spread(rng, spread):
+    """Rows whose logits all sit far below the shift bound get a den near
+    float32's floor; the gradient stays finite there (autodiff of the plain
+    quotient forms 1 / den**2 and turns it into NaN)."""
+    hg, g = _g(rng, n=400, e=3000)
+    H, D = 4, 8
+    h = jnp.asarray(rng.normal(size=(g.n_node, H * D)).astype(np.float32))
+    a1 = jnp.asarray(spread * rng.normal(size=(g.n_node, H)).astype(np.float32))
+    a2 = jnp.asarray(spread * rng.normal(size=(g.n_node, H)).astype(np.float32))
+
+    def loss(h, a1, a2):
+        return jnp.sum(chunked.gat_chunked(g, h, a1, a2, chunk=1024) ** 2)
+
+    for d in jax.grad(loss, argnums=(0, 1, 2))(h, a1, a2):
+        assert bool(jnp.all(jnp.isfinite(d)))
+
+
+def test_stream_normalise_derivative_is_the_quotient_rule():
+    num = jnp.array([[3.0, -1.0], [2e-20, 5e-20]], jnp.float32)
+    den = jnp.array([[2.0, 2.0], [3e-20, 3e-20]], jnp.float32)
+    dn = jnp.array([[0.5, 1.0], [1e-20, 0.0]], jnp.float32)
+    dd = jnp.array([[0.25, -1.0], [0.0, 1e-20]], jnp.float32)
+    out, tan = jax.jvp(chunked._normalise, (num, den), (dn, dd))
+    np.testing.assert_allclose(np.asarray(out), np.asarray(num / den),
+                               rtol=1e-6)
+    want = (np.float64(dn) * np.float64(den) - np.float64(num)
+            * np.float64(dd)) / np.float64(den) ** 2
+    np.testing.assert_allclose(np.asarray(tan), want, rtol=1e-5)

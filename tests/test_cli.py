@@ -49,23 +49,24 @@ def test_cli_node_reorder_cluster(capsys):
 
 
 def test_cli_bench_batched(capsys):
-    """bench --batch B: block-diagonal serving composition reports B*E
-    edges through one kernel sweep."""
+    """bench --batch B: block-diagonal serving composition; the CSR kernels
+    and their XLA references are timed on the B*E-edge graph, and the line
+    names the device it ran on."""
     rc = main(["bench", "--dataset", "tiny", "--hidden", "16",
-               "--iters", "4", "--target-s", "0", "--batch", "3", "--json"])
+               "--iters", "2", "--batch", "3", "--json"])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["batch"] == 3
-    assert out["spmm_edges_per_s"] > 0 and out["sddmm_edges_per_s"] > 0
+    for k in ("spmm_csr", "spmm_xla", "gat_csr", "gat_xla"):
+        assert out[f"{k}_edges_per_s"] > 0
+    assert out["device"]["platform"] == "cpu"
 
 
-def test_cli_bench_tile_classes(capsys):
-    """bench --tile-classes routes both kernels through MultiTiledGraph."""
-    rc = main(["bench", "--dataset", "tiny", "--hidden", "16",
-               "--iters", "4", "--target-s", "0", "--tile-classes", "32,64",
-               "--sparse-block", "64", "--json"])
+def test_cli_run_compiled(capsys):
+    """run --compiled: the compile-only pick lowers and times end to end."""
+    rc = main(["run", "--dataset", "tiny", "--network", "GAT",
+               "--hidden", "16", "--heads", "2", "--iters", "2",
+               "--compiled", "--json"])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["tile_classes"] == [32, 64]
-    assert out["sparse_block"] == 64
-    assert out["spmm_edges_per_s"] > 0 and out["sddmm_edges_per_s"] > 0
+    assert out["latency_us"] > 0 and len(out["schedule"]) == 2

@@ -170,7 +170,7 @@ def test_hub_replication_reduces_halo_width(rng):
 
 
 def test_dist_kernel_route_matches_xla(rng):
-    """use_kernels=True (Pallas local SpMM inside shard_map) == plain path,
+    """use_kernels=True (CSR local SpMM inside shard_map) == plain path,
     forward and gradients."""
     import gta_graph_tensor_acclelrator_for_general_gnn_tpu as gta
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu.compiler.lower import (
@@ -182,8 +182,7 @@ def test_dist_kernel_route_matches_xla(rng):
     g = hg.to_device()
     mesh = _mesh()
     part = parallel.partition_graph(hg, mesh.size)
-    tiles = parallel.shard_tiles(part, block_rows=16, block_cols=16,
-                                 tile_edges=64)
+    tiles = parallel.shard_csr(part)
     og = gta.build_op_graph("GCN", 8, 8)
     params = init_params(og, jax.random.key(0))
     x = rng.normal(size=(n, 8)).astype(np.float32)
@@ -195,7 +194,7 @@ def test_dist_kernel_route_matches_xla(rng):
     xp = jax.device_put(jnp.asarray(parallel.pad_nodes(x, part)),
                         NamedSharding(mesh, P("graph", None)))
     fwd = jax.jit(parallel.make_dist_apply([og], mesh, use_kernels=True,
-                                           tiles=td))
+                                           csrs=td))
     out = fwd(params, pd, xp)
     np.testing.assert_allclose(np.asarray(out)[:n], np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
@@ -207,10 +206,10 @@ def test_dist_kernel_route_matches_xla(rng):
                                    rtol=1e-4, atol=1e-4)
 
 
-def test_shard_tiles_heterogeneous_stripe_counts(rng):
-    """Shards whose row stripes hold different tile counts must stack
-    (regression: per-shard row_first_host static tuples mismatched) and the
-    kernel route must stay exact on such a partition."""
+def test_shard_csr_heterogeneous_shards(rng):
+    """Shards with very different edge and piece counts stack into one
+    uniform per-device CSR, and the kernel route stays exact on such a
+    partition."""
     import gta_graph_tensor_acclelrator_for_general_gnn_tpu as gta
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu.compiler.lower import (
         init_params, lower)
@@ -222,8 +221,7 @@ def test_shard_tiles_heterogeneous_stripe_counts(rng):
                               edge_pad_multiple=128)
     mesh = _mesh()
     part = parallel.partition_graph(hg, mesh.size)
-    tiles = parallel.shard_tiles(part, block_rows=16, block_cols=16,
-                                 tile_edges=32)          # forces imbalance
+    tiles = parallel.shard_csr(part)
     og = gta.build_op_graph("GCN", 8, 8)
     params = init_params(og, jax.random.key(0))
     x = rng.normal(size=(n, 8)).astype(np.float32)
@@ -233,17 +231,16 @@ def test_shard_tiles_heterogeneous_stripe_counts(rng):
     xp = jax.device_put(jnp.asarray(parallel.pad_nodes(x, part)),
                         NamedSharding(mesh, P("graph", None)))
     fwd = jax.jit(parallel.make_dist_apply([og], mesh, use_kernels=True,
-                                           tiles=td))
+                                           csrs=td))
     np.testing.assert_allclose(np.asarray(fwd(params, pd, xp))[:n],
                                np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
 def test_dist_gat_kernel_route_matches_xla(rng):
-    """Multi-chip attention through the fused kernels: the GAT chain's
-    local edges run the online-softmax Pallas kernel as num/den partials
-    under a mesh-global (pmax) shift; remote partial adds exactly
-    (VERDICT r2 next-4a).  Forward AND grads vs the single-device XLA
-    lowering."""
+    """Multi-device attention through the CSR kernel: the GAT chain's
+    local edges run the attention kernel as num/den partials under a
+    mesh-global (pmax) shift; the remote partial adds exactly.  Forward AND
+    grads vs the single-device XLA lowering."""
     mesh = _mesh()
     g, og, params, x = _setup(rng, "GAT", n=120, e=900, heads=4)
     ref = lower(og)(params, g, jnp.asarray(x))
@@ -253,15 +250,14 @@ def test_dist_gat_kernel_route_matches_xla(rng):
         np.asarray(g.receivers[: g.n_edge]), g.n_node,
         edge_weight=np.asarray(g.edge_weight[: g.n_edge]))
     part = parallel.partition_graph(hg, mesh.size)
-    gat_tiles = parallel.shard_tiles(part, block_rows=16, block_cols=16,
-                                     tile_edges=32, unit_weight=True)
+    gat_tiles = parallel.shard_csr(part, unit_weight=True)
     part_d = parallel.shard_part(part, mesh)
     gat_tiles_d = parallel.shard_part(gat_tiles, mesh)
     xp = jax.device_put(
         jnp.asarray(parallel.pad_nodes(x, part)),
         NamedSharding(mesh, P("graph", None)))
     fwd = jax.jit(parallel.make_dist_apply([og], mesh, use_kernels=True,
-                                           gat_tiles=gat_tiles_d))
+                                           gat_csrs=gat_tiles_d))
     out = fwd(params, part_d, xp)
     np.testing.assert_allclose(
         np.asarray(out)[: g.n_node], np.asarray(ref), rtol=5e-5, atol=5e-5)
@@ -280,10 +276,10 @@ def test_dist_gat_kernel_route_matches_xla(rng):
                                    rtol=1e-3, atol=1e-3)
 
 
-def test_shard_tiles_dead_tile_marking(rng):
-    """Skewed partitions: padding tiles beyond a shard's own need are
-    marked cb == -1 (the kernels skip their matmuls), so per-device LIVE
-    tile counts equal each shard's own need exactly."""
+def test_shard_csr_padding_pieces(rng):
+    """Skewed partitions: every shard's piece table is padded to the same
+    length with EMPTY pieces on the dump row, so a light shard's program
+    does no work for them; the kernel route stays exact."""
     # deliberately skewed: 90% of edges land on shard 0's nodes
     n, e = 160, 1200
     s = rng.integers(0, n, e).astype(np.int32)
@@ -293,43 +289,31 @@ def test_shard_tiles_dead_tile_marking(rng):
     hg = gta.build_host_graph(s, r, n, symmetric_norm=True)
     mesh = _mesh()
     part = parallel.partition_graph(hg, mesh.size)
-    tiles = parallel.shard_tiles(part, block_rows=16, block_cols=16,
-                                 tile_edges=32)
-    cb = np.asarray(tiles.tile_cb)                  # [D, T]
-    live = (cb >= 0).sum(axis=1)
+    csrs = parallel.shard_csr(part)
+    start = np.asarray(csrs.piece_start)
+    end = np.asarray(csrs.piece_end)
+    row = np.asarray(csrs.piece_row)
+    assert csrs.split and start.shape[0] == mesh.size
     el_mask = np.asarray(part.el_mask)
-    need = []
     for d in range(mesh.size):
-        m = el_mask[d]
-        ne = int(m.sum())
-        if ne == 0:
-            need.append(1)
-            continue
-        src = np.asarray(part.el_src)[d][m]
-        dst = np.asarray(part.el_dst)[d][m]
-        key = (dst // 16).astype(np.int64) * 1000 + src // 16
-        _, cnt = np.unique(key, return_counts=True)
-        need.append(int(np.ceil(cnt / 32).sum()))
-    # live tiles == own need (+ row-coverage filler tiles at most n_rb)
-    n_rb = part.n_local // 16 + (1 if part.n_local % 16 else 0)
-    assert (live <= np.asarray(need) + n_rb).all(), (live, need)
-    assert cb.shape[1] == live.max() or (cb[:, -1] == -1).any()
-    # and the skewed shard's need dominates: padding exists on light shards
-    assert live.min() < cb.shape[1]
+        # the real pieces cover exactly the shard's own local edges
+        assert int((end[d] - start[d]).sum()) == int(el_mask[d].sum())
+        pad = row[d] == part.n_local
+        assert pad.any() and (start[d][pad] == end[d][pad]).all()
+        assert (np.diff(row[d]) >= 0).all()
 
-    # correctness with dead tiles in the loop
     og = gta.build_op_graph("GCN", 24, 12)
     params = init_params(og, jax.random.key(1))
     x = rng.normal(size=(n, 24)).astype(np.float32)
     g = hg.to_device()
     ref = lower(og)(params, g, jnp.asarray(x))
     part_d = parallel.shard_part(part, mesh)
-    tiles_d = parallel.shard_part(tiles, mesh)
+    csrs_d = parallel.shard_part(csrs, mesh)
     xp = jax.device_put(
         jnp.asarray(parallel.pad_nodes(x, part)),
         NamedSharding(mesh, P("graph", None)))
     fwd = jax.jit(parallel.make_dist_apply([og], mesh, use_kernels=True,
-                                           tiles=tiles_d))
+                                           csrs=csrs_d))
     out = fwd(params, part_d, xp)
     np.testing.assert_allclose(
         np.asarray(out)[: g.n_node], np.asarray(ref), rtol=2e-5, atol=2e-5)

@@ -26,7 +26,7 @@ def test_train_bf16_compute():
 
 
 def test_train_with_fused_schedule():
-    """Training through the fused-kernel schedule path (interpret mode)."""
+    """Training through the fused-block schedule path (stream lowering)."""
     import jax
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu.compiler import (
         schedule as S)
@@ -36,7 +36,6 @@ def test_train_with_fused_schedule():
     model = build_model("GCN", ds.x.shape[1], ds.n_class, hidden=16,
                         n_layers=2)
     # per-layer schedules with the SpMM block dispatched to the stream path
-    # (runs everywhere, unlike the Pallas kernel which needs TPU/interpret)
     scheds = []
     for layer in model.layers:
         part = S.max_fusion_partition(layer)
@@ -50,11 +49,13 @@ def test_train_with_fused_schedule():
 
 
 @pytest.mark.parametrize("network", ["GCN", "GAT"])
-def test_train_with_hybrid_kernel_backward(network):
-    """Training through the r5 density-split path WITH the transposed
-    twin: gradients run the hybrid kernel backwards (dense-block VJP +
-    fused tile-domain tail), not the XLA [E, F] recompute — the
-    full-batch-Reddit training recipe at tiny scale (interpret mode)."""
+@pytest.mark.parametrize("transpose", [True, False],
+                         ids=["kernel_bwd", "xla_bwd"])
+def test_train_with_csr_kernels(network, transpose):
+    """Training through the CSR kernels (interpret mode); with the
+    transposed CSR the gradients run the kernels backwards instead of the
+    XLA [E, F] recompute — the full-batch-Reddit training recipe at tiny
+    scale."""
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu.compiler import (
         schedule as S)
     from gta_graph_tensor_acclelrator_for_general_gnn_tpu.compiler.fusion \
@@ -64,20 +65,20 @@ def test_train_with_hybrid_kernel_backward(network):
     ds = load_dataset("tiny")
     model = build_model(network, ds.x.shape[1], ds.n_class, hidden=16,
                         n_layers=2, heads=2)
-    want = "spmm_hybrid" if network == "GCN" else "gat_hybrid"
+    want = "spmm" if network == "GCN" else "gat"
     scheds = []
     for layer in model.layers:
         part = (S.aggregation_partition(layer) if network == "GCN"
                 else S.pattern_partition(layer))
-        tc = S.TileConfig(32, 32, 64, S.PATH_HYBRID)
+        tc = S.TileConfig(path=S.PATH_CSR)
         tiles = tuple(
             tc if classify_block(layer, b, tc)[0] == want
             else S.TileConfig(path=S.PATH_XLA) for b in part)
         scheds.append(S.Schedule(blocks=part, tiles=tiles))
-    assert any(t.path == S.PATH_HYBRID for s in scheds for t in s.tiles)
+    assert any(t.path == S.PATH_CSR for s in scheds for t in s.tiles)
     _, res = train_node_classifier(ds, network, hidden=16, heads=2,
                                    epochs=30, model=model, schedules=scheds,
-                                   build_transpose=True)
+                                   build_transpose=transpose)
     assert res.train_acc > 0.6, res
 
 
